@@ -8,6 +8,8 @@ as `__version__` ignored), so a JAX map checkpoint loads into the port:
     state = map_state_from_numpy(data, device="cuda")
 
 `to_numpy` goes the other way for any of the port's NamedTuples.
+`vocabulary_from_numpy` takes a vocabulary's fields (the JAX `Vocabulary`'s
+as a dict, or its npz file), so one vocabulary can serve both packages.
 """
 
 from __future__ import annotations
@@ -18,7 +20,9 @@ import numpy as np
 import torch
 
 from orb_slam2_tpu_torch.map.state import MapState
+from orb_slam2_tpu_torch.pipeline.frame import Frame
 from orb_slam2_tpu_torch.pipeline.tracking import TrackState
+from orb_slam2_tpu_torch.place.vocab import Vocabulary
 
 
 def _from_numpy(cls, fields: Mapping[str, np.ndarray], device):
@@ -37,6 +41,22 @@ def map_state_from_numpy(fields: Mapping[str, np.ndarray],
 def track_state_from_numpy(fields: Mapping[str, np.ndarray],
                            device=None) -> TrackState:
     return _from_numpy(TrackState, fields, device)
+
+
+def frame_from_numpy(fields: Mapping[str, np.ndarray], device=None) -> Frame:
+    return _from_numpy(Frame, fields, device)
+
+
+def vocabulary_from_numpy(fields: Mapping) -> Vocabulary:
+    """The port's Vocabulary from the fields of another one (e.g.
+    `dataclasses.asdict` of the JAX package's, or `np.load` of its npz)."""
+    return Vocabulary(
+        k=int(fields["k"]), depth=int(fields["depth"]),
+        node_children=np.asarray(fields["node_children"], np.int32),
+        node_desc=np.asarray(fields["node_desc"], np.uint8),
+        word_id=np.asarray(fields["word_id"], np.int32),
+        word_weight=np.asarray(fields["word_weight"], np.float32),
+        n_words=int(fields["n_words"]), levels_up=int(fields["levels_up"]))
 
 
 def to_numpy(state) -> dict:

@@ -1,10 +1,12 @@
-"""SO3 / SE3 quaternion ops on batched tensors (port of
-orb_slam2_tpu/core/lie.py, the subset the monocular path uses).
+"""SO3 / SE3 / Sim3 quaternion ops on batched tensors (port of
+orb_slam2_tpu/core/lie.py).
 
 Representations match the reference package:
 * rotation: unit quaternion ``q = [w, x, y, z]``           ``[..., 4]``
 * SE3:      ``T = [qw, qx, qy, qz, tx, ty, tz]`` (Tcw)     ``[..., 7]``
-Tangent vectors are ``[rho(3), phi(3)]`` (g2o ordering).
+* Sim3:     ``S = [qw, qx, qy, qz, tx, ty, tz, s]``        ``[..., 8]``
+Tangent vectors are ``[rho(3), phi(3)]`` (g2o ordering), with a trailing
+``sigma = log s`` for Sim3.
 """
 
 from __future__ import annotations
@@ -212,3 +214,105 @@ def se3_log(T: torch.Tensor) -> torch.Tensor:
 def se3_retract(T: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     """Left-multiplied exp-map update exp(xi) * T (g2o VertexSE3Expmap)."""
     return se3_compose(se3_exp(xi), T)
+
+
+# ---------------------------------------------------------------------------
+# Sim3
+# ---------------------------------------------------------------------------
+
+def sim3_from_se3(T: torch.Tensor) -> torch.Tensor:
+    return torch.cat([T, torch.ones_like(T[..., :1])], dim=-1)
+
+
+# Scales are handled as [..., 1] slices: forward-mode autodiff
+# (torch.func.jacfwd) gives float64 tangents to some ops between a 0-dim
+# tensor and a Python float.
+def sim3_q(S): return S[..., :4]
+def sim3_t(S): return S[..., 4:7]
+def sim3_s(S): return S[..., 7]
+
+
+def sim3_apply(S: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """p' = s R p + t  (g2o Sim3::map)."""
+    return S[..., 7:8] * quat_rotate(sim3_q(S), p) + sim3_t(S)
+
+
+def sim3_compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    q = quat_mul(sim3_q(A), sim3_q(B))
+    sa = A[..., 7:8]
+    t = sa * quat_rotate(sim3_q(A), sim3_t(B)) + sim3_t(A)
+    return torch.cat([quat_normalize(q), t, sa * B[..., 7:8]], dim=-1)
+
+
+def sim3_inverse(S: torch.Tensor) -> torch.Tensor:
+    qi = quat_conj(sim3_q(S))
+    si = torch.reciprocal(S[..., 7:8])
+    ti = -si * quat_rotate(qi, sim3_t(S))
+    return torch.cat([qi, ti, si], dim=-1)
+
+
+def sim3_to_se3(S: torch.Tensor) -> torch.Tensor:
+    """SE3 = [R, t/s] from a Sim3 (reference Optimizer.cc:991-1010)."""
+    return se3(sim3_q(S), sim3_t(S) / S[..., 7:8])
+
+
+def _sim3_V(phi: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """Translation Jacobian V(phi, sigma) of sim3_exp (t = V rho):
+    A I + B W + C W^2 with the series-safe coefficients of Strasdat's
+    Sim3 exp.  The scalars are kept as [..., 1, 1] tensors (see above)."""
+    sigma = sigma[..., None, None]
+    s = torch.exp(sigma)
+    theta = _safe_norm(phi, keepdim=True)[..., None]
+    W = hat(phi)
+    W2 = W @ W
+    eye = torch.eye(3, dtype=phi.dtype, device=phi.device)
+    eps = 1e-5
+    th2 = torch.clamp(theta * theta, min=_EPS)
+    small_sig = torch.abs(sigma) < eps
+    small_th = theta < eps
+    A = torch.where(small_sig, 1.0 + sigma / 2.0,
+                    (s - 1.0) / torch.where(small_sig, 1.0, sigma))
+    c0 = torch.cos(theta)
+    s0 = torch.sin(theta)
+    denom = torch.clamp(sigma * sigma + th2, min=_EPS)
+    a_gen = (s * s0 * sigma + (1.0 - s * c0) * theta) / torch.clamp(
+        theta * denom, min=_EPS)
+    b_gen = (A - ((s * c0 - 1.0) * sigma + s * s0 * theta) / denom) / th2
+    a_sig0 = (1.0 - c0) / th2
+    b_sig0 = (theta - s0) / torch.clamp(th2 * theta, min=_EPS)
+    B = torch.where(small_sig, a_sig0, torch.where(small_th, 0.5 * A, a_gen))
+    C = torch.where(small_sig, b_sig0, torch.where(small_th, A / 6.0, b_gen))
+    return A * eye + B * W + C * W2
+
+
+def sim3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """Tangent [..., 7] = [rho, phi, sigma] -> Sim3 (s = exp(sigma),
+    t = V rho)."""
+    rho, phi = xi[..., :3], xi[..., 3:6]
+    V = _sim3_V(phi, xi[..., 6])
+    t = torch.einsum('...ij,...j->...i', V, rho)
+    return torch.cat([so3_exp(phi), t, torch.exp(xi[..., 6:7])], dim=-1)
+
+
+def sim3_retract(S: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
+    """exp(xi) * S (left-multiplied update, as VertexSim3Expmap)."""
+    return sim3_compose(sim3_exp(xi), S)
+
+
+def sim3_log(S: torch.Tensor) -> torch.Tensor:
+    """Inverse of sim3_exp: Sim3 -> tangent [..., 7]."""
+    phi = so3_log(sim3_q(S))
+    sigma = torch.log(torch.clamp(S[..., 7:8], min=_EPS))
+    rho = _solve3(_sim3_V(phi, sigma[..., 0]), sim3_t(S))
+    return torch.cat([rho, phi, sigma], dim=-1)
+
+
+def _solve3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x with A x = b for [..., 3, 3] A by Cramer's rule.  (torch.linalg.
+    solve gives wrong forward-mode derivatives under torch.func.vmap.)"""
+    c0, c1, c2 = A[..., :, 0], A[..., :, 1], A[..., :, 2]
+    det = torch.sum(c0 * _cross(c1, c2), -1, keepdim=True)
+    return torch.cat([torch.sum(b * _cross(c1, c2), -1, keepdim=True),
+                      torch.sum(c0 * _cross(b, c2), -1, keepdim=True),
+                      torch.sum(c0 * _cross(c1, b), -1, keepdim=True)],
+                     -1) / det

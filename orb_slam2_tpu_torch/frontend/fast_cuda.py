@@ -15,20 +15,13 @@ path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 
 import torch
 
+from orb_slam2_tpu_torch import cuda_build
 from orb_slam2_tpu_torch.frontend import fast
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "fast_nms.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+SOURCE = cuda_build.source("fast_nms.cu")
 
 launches = 0
 _lib = None
@@ -40,32 +33,9 @@ def fast_nms_raw_plain(img: torch.Tensor):
     return fast.nms3x3(raw), raw
 
 
-def _nvcc() -> str:
-    """nvcc from PATH, else from the CUDA toolkit's standard location."""
-    return shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-
-
 def build(verbose: bool = False) -> str:
-    """Compile csrc/fast_nms.cu into a shared library (once per source
-    content) and return its path."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"libfast_nms_{digest}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else []) + \
-        ["-o", tmp, SOURCE]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose and res.stderr:
-        print(res.stderr.strip())
-    os.replace(tmp, out)
-    return out
+    """Compile csrc/fast_nms.cu (once per source content); its path."""
+    return cuda_build.build(SOURCE, verbose)
 
 
 def _load():

@@ -149,6 +149,19 @@ def last_writer(idx: torch.Tensor, ok: torch.Tensor, n: int) -> torch.Tensor:
     return ok & (last[tgt] == rows)
 
 
+def set_last(n: int, idx: torch.Tensor, vals: torch.Tensor,
+             fill) -> torch.Tensor:
+    """[n, ...] `full(fill).at[idx].set(vals)`: rows with idx outside
+    [0, n) write nowhere, and a target written twice keeps the later row
+    (`last_writer`), as JAX does on the CPU, on any device."""
+    ok = (idx >= 0) & (idx < n)
+    win = last_writer(idx, ok, n)
+    out = torch.full((n + 1,) + tuple(vals.shape[1:]), fill,
+                     dtype=vals.dtype, device=idx.device)
+    out[torch.where(win, idx.long(), n)] = vals
+    return out[:n]
+
+
 def first_flagged(mask: torch.Tensor, P: int) -> torch.Tensor:
     """The first P indices where mask holds, in ascending order, padded with
     the first unflagged indices — `lax.top_k(mask.astype(int32), P)[1]`."""

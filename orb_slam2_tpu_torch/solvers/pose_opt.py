@@ -4,10 +4,15 @@
 inlier reclassification between rounds and the Huber kernel dropped for the
 last round (reference Optimizer::PoseOptimization, Optimizer.cc:239-451).
 
-The JAX `while_loop` stops a round once a step converged.  Here each round
-runs its full iteration count with masked updates: after convergence the
-carry is frozen, so the result is the same and the host never waits for
-the device inside the loop.
+`pose_optimize` dispatches on the tensors' device: CUDA tensors go to the
+hand-written kernel (csrc/pose_lm.cu via `pose_lm_cuda`), one launch for
+the whole schedule; CPU tensors to `pose_optimize_plain`, the same function
+in tensor ops.  There is no fallback from one to the other.
+
+The JAX `while_loop` stops a round once a step converged.  The plain
+version runs each round's full iteration count with masked updates: after
+convergence the carry is frozen, so the result is the same and the host
+never waits for the device inside the loop.  The kernel stops the round.
 """
 
 from __future__ import annotations
@@ -18,6 +23,10 @@ import torch
 
 from orb_slam2_tpu_torch.config import BAConfig
 from orb_slam2_tpu_torch.core import lie
+from orb_slam2_tpu_torch.solvers import pose_lm_cuda
+
+# pose_optimize calls on CUDA tensors, each one kernel launch
+cuda_calls = 0
 
 
 class PoseOptResult(NamedTuple):
@@ -67,7 +76,22 @@ def pose_optimize(T0, pw, obs_uv, obs_ur, inv_sigma2, valid, is_stereo,
     """Optimize one camera pose against fixed 3D points.
 
     T0: [7]; pw: [N, 3]; obs_uv: [N, 2]; obs_ur: [N]; inv_sigma2: [N];
-    valid: [N] bool; is_stereo: [N] bool."""
+    valid: [N] bool; is_stereo: [N] bool; K: [4]; bf: float."""
+    global cuda_calls
+    if not pw.is_cuda:
+        return pose_optimize_plain(T0, pw, obs_uv, obs_ur, inv_sigma2, valid,
+                                   is_stereo, K, bf, cfg)
+    cuda_calls += 1
+    T, inl, n_in, chi2, _ = pose_lm_cuda.pose_lm_cuda(
+        T0[None], pw[None], obs_uv[None], obs_ur[None], inv_sigma2[None],
+        valid[None], is_stereo[None], K, bf, cfg)
+    return PoseOptResult(T=T[0], inliers=inl[0], n_inliers=n_in[0],
+                         chi2=chi2[0])
+
+
+def pose_optimize_plain(T0, pw, obs_uv, obs_ur, inv_sigma2, valid, is_stereo,
+                        K, bf, cfg: BAConfig = BAConfig()) -> PoseOptResult:
+    """`pose_optimize` in tensor ops (the kernel's plain version)."""
     dev = pw.device
     chi2_th = torch.where(is_stereo, cfg.chi2_stereo, cfg.chi2_mono)
     delta2 = torch.where(is_stereo, cfg.huber_stereo ** 2, cfg.huber_mono ** 2)

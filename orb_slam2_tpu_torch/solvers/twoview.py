@@ -4,7 +4,9 @@
 `initialize` takes the RANSAC sample index sets as an argument, so a test
 can feed the same sets to this port and to the JAX package (whose samples
 come from `jax.random`, a stream torch cannot reproduce).  `sample_sets`
-draws them with an explicit `torch.Generator`.
+draws them with an explicit `torch.Generator`; `sets_from_uniform` builds
+them from given uniform draws, which is how callers whose valid mask is
+computed inside (relocalisation, loop verification) take JAX's samples.
 """
 
 from __future__ import annotations
@@ -41,17 +43,24 @@ def _normalize(pts: torch.Tensor, valid: torch.Tensor):
     return pn, T
 
 
-def sample_sets(gen: torch.Generator, valid: torch.Tensor, iters: int,
-                k: int = 8) -> torch.Tensor:
-    """[iters, k] indices among valid entries: slot j of each set draws
-    uniformly from the j-th of k equal strata of the valid range."""
+def sets_from_uniform(u: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """[iters, k] indices among valid entries from uniform draws u
+    [iters, k]: slot j of each set takes the j-th of k equal strata of the
+    valid range (JAX `_sample_sets` given the same draws)."""
     n = valid.shape[0]
+    k = u.shape[-1]
     order = torch.argsort((~valid).to(torch.int8), stable=True)
     nv = torch.clamp(torch.sum(valid.to(torch.int32)), min=1)
-    u = torch.rand((iters, k), generator=gen, device=valid.device)
-    strat = (u + torch.arange(k, device=valid.device)[None, :]) / k
+    strat = (u + torch.arange(k, device=valid.device)) / k
     idx = torch.clamp((strat * nv).to(torch.int64), 0, n - 1)
     return order[idx]
+
+
+def sample_sets(gen: torch.Generator, valid: torch.Tensor, iters: int,
+                k: int = 8) -> torch.Tensor:
+    """`sets_from_uniform` with draws from `gen`."""
+    u = torch.rand((iters, k), generator=gen, device=valid.device)
+    return sets_from_uniform(u, valid)
 
 
 def _homography_dlt(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:

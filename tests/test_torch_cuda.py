@@ -1,7 +1,8 @@
-"""Tests of the port that need a CUDA card: the hand-written FAST-9+NMS
-kernel against its plain PyTorch version, bit-exact, on the card.  They
-skip without a card.  This file imports neither JAX nor the JAX package,
-so it also runs where only PyTorch is installed:
+"""Tests of the port that need a CUDA card: the hand-written kernels
+against their plain PyTorch versions on the card — FAST-9+NMS bit-exact,
+the pose LM within 1e-4 with the same inliers, two launches bit-identical.
+They skip without a card.  This file imports neither JAX nor the JAX
+package, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -11,7 +12,9 @@ import pytest
 import torch
 
 from orb_slam2_tpu_torch import config
+from orb_slam2_tpu_torch.core import lie
 from orb_slam2_tpu_torch.frontend import fast_cuda, pyramid
+from orb_slam2_tpu_torch.solvers import pose_lm_cuda, pose_opt
 
 # the 8 pyramid levels of a 640x480 frame, the two shapes of
 # tests/test_pallas.py (one not a multiple of the tile) and a tiny level
@@ -56,3 +59,77 @@ def test_extractor_on_card_matches_cpu():
     same = ((g.valid.cpu() == c.valid) & (g.octave.cpu() == c.octave) &
             ((g.uv.cpu() - c.uv).abs().amax(-1) <= 1e-3))
     assert float(same.float().mean()) >= 0.99
+
+
+K4 = (500.0, 500.0, 320.0, 240.0)
+
+
+def _pose_problem(seed, n, stereo_frac, bf=40.0):
+    """A pose ~0.05 off the truth, half-pixel noise, 10% outliers, on the
+    card: (T0, pw, uv, ur, inv_sigma2, valid, is_stereo, K, bf)."""
+    rng = np.random.RandomState(seed)
+    pw = (rng.randn(n, 3) * [2.0, 2.0, 0.8] + [0, 0, 5.0]).astype(np.float32)
+    T_true = lie.se3_exp(torch.tensor([0.1, -0.05, 0.02, 0.03, -0.02, 0.01]))
+    pc = lie.se3_apply(T_true, torch.from_numpy(pw)).numpy()
+    uv = (pc[:, :2] / pc[:, 2:] * K4[:2] + K4[2:] +
+          rng.randn(n, 2) * 0.5).astype(np.float32)
+    out = rng.rand(n) < 0.1
+    uv[out] += (rng.randn(out.sum(), 2) * 30).astype(np.float32)
+    is_st = rng.rand(n) < stereo_frac
+    ur = np.where(is_st, uv[:, 0] - bf / pc[:, 2], -1.0).astype(np.float32)
+    inv_s2 = (1.0 / 1.44 ** rng.randint(0, 8, n)).astype(np.float32)
+    T0 = lie.se3_compose(lie.se3_exp(torch.tensor(
+        [0.05, 0.05, -0.05, 0.03, 0.02, -0.02])), T_true)
+    arrs = [T0, torch.from_numpy(pw), torch.from_numpy(uv),
+            torch.from_numpy(ur), torch.from_numpy(inv_s2),
+            torch.from_numpy(rng.rand(n) < 0.97), torch.from_numpy(is_st),
+            torch.tensor(K4)]
+    return [a.cuda() for a in arrs] + [bf]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,stereo_frac", [(1024, 0.0), (1024, 1 / 3),
+                                           (64, 0.0)])
+def test_pose_lm_kernel_matches_plain_on_card(n, stereo_frac):
+    """Pose within 1e-4 (float32 sums in another order), inlier masks equal
+    on >= 99% of points and counts within 2 (a chi^2 at its threshold may
+    flip); `pose_optimize` on CUDA tensors launches the kernel once."""
+    _card()
+    p = _pose_problem(n, n, stereo_frac)
+    before, calls = pose_lm_cuda.launches, pose_opt.cuda_calls
+    k = pose_opt.pose_optimize(*p)
+    r = pose_opt.pose_optimize_plain(*p)
+    torch.cuda.synchronize()
+    assert pose_lm_cuda.launches == before + 1
+    assert pose_opt.cuda_calls == calls + 1
+    assert float((k.T - r.T).abs().max()) <= 1e-4
+    assert float((k.inliers == r.inliers).float().mean()) >= 0.99
+    assert abs(int(k.n_inliers) - int(r.n_inliers)) <= 2
+
+
+@pytest.mark.cuda
+def test_pose_lm_batch_and_two_launches_bit_identical():
+    """A batch of 4 problems in one launch equals each problem alone, and
+    two launches give the same bits (a fixed-order block reduction)."""
+    _card()
+    probs = [_pose_problem(s, 512, 0.2) for s in range(4)]
+    stack = [torch.stack([p[i] for p in probs]) for i in range(7)]
+    args = stack + [probs[0][7], probs[0][8], config.BAConfig()]
+    a = pose_lm_cuda.pose_lm_cuda(*args)
+    b = pose_lm_cuda.pose_lm_cuda(*args)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    for i, p in enumerate(probs):
+        one = pose_opt.pose_optimize(*p)
+        assert torch.equal(one.T, a[0][i]) and torch.equal(one.inliers,
+                                                           a[1][i])
+
+
+@pytest.mark.cuda
+def test_pose_lm_kernel_refuses_cpu_tensors():
+    _card()
+    p = _pose_problem(0, 128, 0.0)
+    cpu = [x.cpu()[None] if torch.is_tensor(x) and x.dim() >= 1 and
+           x.shape != (4,) else x for x in p[:7]]
+    with pytest.raises(ValueError, match="pose_lm_cuda expects"):
+        pose_lm_cuda.pose_lm_cuda(*cpu, p[7], p[8])

@@ -48,7 +48,10 @@ def test_source_imports_no_jax(path):
 def test_importing_the_port_loads_no_jax():
     mods = ["orb_slam2_tpu_torch." + m for m in (
         "convert", "pipeline.system", "frontend.fast_cuda", "io.synthetic",
-        "io.evaluate")]
+        "io.evaluate", "place.vocab", "place.database", "pipeline.reloc",
+        "pipeline.loopclosing", "ba.posegraph", "ba.async_gba",
+        "solvers.epnp", "solvers.sim3", "solvers.pose_lm_cuda",
+        "cuda_build")]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
             "import chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
