@@ -8,24 +8,27 @@ each of which fails the run when it fails:
 
   1. environment: torch / CUDA versions, the card's name and power limit;
   2. build: compile csrc/fast_nms.cu and csrc/pose_lm.cu with nvcc
-     (sm_90a), both at once, printing ptxas's register and shared-memory
-     counts;
-  3. FAST kernel: the FAST-9+NMS kernel against its plain PyTorch version
-     on the card, bit-exact, at the 8 pyramid-level shapes of a 640x480
-     frame plus a 70x128 remainder case; CUDA-event and torch.profiler
+     (sm_90a), and the pose LM at each cluster size 1, 2, 4, 8, all at once
+     (one nvcc each), printing ptxas's register and shared-memory counts;
+  3. FAST kernel: the all-level FAST-9+NMS kernel against its plain
+     PyTorch version on the card, bit-exact, on the level atlas of the main
+     path (8 levels of 640x480), of the small configuration (8 levels of
+     320x240) and of two 640x480 images; CUDA-event and torch.profiler
      timings; one frame through the extractor on the card and on the CPU;
   4. pose-LM kernel: the one-launch pose LM against `pose_optimize_plain`
      on the card at N = 1024 mono, N = 1024 with a third of the rows
      stereo, N = 64, and a batch of 4 problems (seeded, ~10% outliers):
      pose within 1e-4, inlier masks agree on >= 99% of points, inlier
-     counts within 2; call, device and plain times; its bound;
+     counts within 2, two launches bit-identical; call, device and plain
+     times; its bound; then the kernel at each cluster size on 8 seeded
+     N = 1024 mono problems: device and call times, LM iterations;
   5. main path: monocular SLAM at the default SLAMConfig (640x480, 1000
      features, 32768 map points, 512 keyframes) with the default vocabulary
      on, on the bench sequence (120 frames, 500 points, xyz trajectory,
      seed 0), through `SLAM.track_mono`; checks tracking rate, scale-aligned
      ATE, that the state lives on the card, BoW on every keyframe, that
-     every pose LM and every extracted pyramid level went through its
-     kernel;
+     every pose LM went through its kernel and every frame's pyramid
+     through one FAST launch;
   6. relocalisation (tests/test_e2e.py test_relocalization_recovers at the
      default config): track, blind the camera for 4 frames, revisit; must
      recover without a reset, through the pose-LM kernel;
@@ -57,19 +60,23 @@ import torch
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and non-tensor f32 op/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
-# FAST-9 + NMS arithmetic per pixel: 16 differences, 16 rotations x (2 x 8
-# min + 2 max), the final 2 max, 8 NMS max + 1 compare
-FAST_OPS_PER_PX = 16 + 16 * 18 + 2 + 9
-# bytes per pixel: read the image once (4 B), write nms + raw (8 B)
-FAST_BYTES_PER_PX = 12
-# pose-LM f32 operations per active point, counted from csrc/pose_lm.cu:
-# an LM iteration linearizes (rotation + translation 33, projection and
-# residuals 12, chi^2 6, Huber 4, 1/z 2, d proj 8, Jacobian rows 36,
-# weight 2, 21 H entries x 6, 6 g entries x 6, cost 2 = 267) and
-# re-evaluates the cost (33 + 12 + 6 + 4 + 2 = 57); each round's
-# reclassification and the final one evaluate chi^2 (53) at every point
-POSE_OPS_PER_PT_ITER = 267 + 57
-POSE_OPS_PER_PT_ROUND = 53
+# FAST-9 + NMS arithmetic per level pixel, counted from csrc/fast_nms.cu:
+# 16 differences; bright and dark arcs each 44 min/max for the 16 windows of
+# 9 (van Herk / Gil-Werman) plus 15 max/min over them; the final 2 max; 8
+# NMS max + 1 compare
+FAST_OPS_PER_PX = 16 + 2 * (44 + 15) + 2 + 9
+# bytes: every level pixel read once (4 B); both padded [G, Hp, Wp] maps
+# written once (2 x 4 B a plane pixel, zeros outside the levels included)
+FAST_IN_BYTES_PER_PX = 4
+FAST_OUT_BYTES_PER_PLANE_PX = 8
+# pose-LM f32 operations per active point, counted from csrc/pose_lm.cu: a
+# linearization (rotation + translation 33, 1/z and projection and
+# residuals 12, chi^2 6, Huber 4, d proj 8, Jacobian rows 36, weight 2,
+# 21 H entries x 6, 6 g entries x 6, cost 2 = 267) at each LM iteration's
+# trial pose and at each round's start pose (which also reclassifies), and
+# the final classification's chi^2 (53) at every point
+POSE_OPS_PER_PT_PASS = 267
+POSE_OPS_PER_PT_FINAL = 53
 # bytes per point: pw 12, uv 8, ur 4, inv sigma^2 4, valid 1, stereo 1 in;
 # inlier flag 1 out; per problem T0, T 28 B each, n and chi^2 4 B each
 POSE_BYTES_PER_PT = 31
@@ -84,6 +91,13 @@ LOOP_FRAMES = 140
 # same card type (PERF.md, NVIDIA H100 80GB HBM3, 700 W): steady fps, frame
 # ms p50 / p90 / max
 FIRST_SLICE_MAIN = (2.602, 385.12, 447.67, 525.46)
+# the second slice's kernels on the same card type (PERF.md, NVIDIA H100
+# 80GB HBM3, 700 W): FAST as one frame's 8 per-level launches, the pose LM
+# as one block at N = 1024 mono; device ms (torch.profiler) and call ms
+# (CUDA events)
+SECOND_SLICE_FAST = (0.06769, 0.4420)
+SECOND_SLICE_POSE = (0.2028, 0.2665)
+CLUSTERS = (1, 2, 4, 8)
 
 
 class PhaseError(Exception):
@@ -125,84 +139,109 @@ def time_ms(fn, reps: int = 30, warm: int = 3) -> float:
     return statistics.median(ts)
 
 
-def device_ms(fn, name: str, reps: int = 20):
-    """Device time of one launch of the kernel `name` (torch.profiler, mean
-    over `reps` launches), or None when the trace holds no device time.
-    CUDA events around a call also hold the host's launch overhead."""
+def queued_ms(fn, reps: int = 30) -> float:
+    """Median over `reps` of one call's time between two CUDA events, the
+    card kept busy before the first (torch.cuda._sleep, ~0.2 ms) so that the
+    host's enqueue is hidden: the device time of the launch, its start on
+    the card included."""
+    fn()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(400_000)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+
+def host_us(fn, n: int = 100) -> float:
+    """Host microseconds a call takes to enqueue its work (no sync inside)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return dt
+
+
+def device_ms(fn, name: str, reps: int = 20, tries: int = 3):
+    """Device time of one launch of the kernel `name`: torch.profiler's
+    total over the launches its trace recorded, divided by their number (a
+    trace can drop some of `reps` cluster launches), or None when `tries`
+    traces record none.  CUDA events around a call also hold the host's
+    launch overhead."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        if name in e.key:
-            us += float(getattr(e, "self_device_time_total",
-                                getattr(e, "self_cuda_time_total", 0.0)))
-    return us / reps / 1e3 if us > 0 else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, seen = 0.0, 0
+        for e in prof.key_averages():
+            if name in e.key:
+                us += float(getattr(e, "self_device_time_total",
+                                    getattr(e, "self_cuda_time_total", 0.0)))
+                seen += int(e.count)
+        if seen:
+            return us / seen / 1e3
+    return None
 
 
 def _dev(d_ms):
     return "not measured" if d_ms is None else f"{d_ms:.5f} ms"
 
 
-def check_fast(fast_cuda, shapes):
-    """Bit-exact kernel vs plain version at each shape; timings per shape."""
+def check_fast(fast_cuda, atlases):
+    """Bit-exact all-level kernel vs plain version on each (name, level
+    shapes, n_images) atlas; timings and bound per atlas."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for (H, W) in shapes:
-        img = torch.rand((H, W), generator=gen, device="cuda") * 255.0
-        nms, raw = fast_cuda.fast_nms_cuda(img)
-        pn, pr = fast_cuda.fast_nms_raw_plain(img)
+    for name, levels, n_img in atlases:
+        Hp, Wp = levels[0]
+        G = len(levels) * n_img
+        # seeded values everywhere, also outside the levels (never read)
+        atlas = torch.rand((G, Hp, Wp), generator=gen, device="cuda") * 255.0
+        nms, raw = fast_cuda.fast_nms_atlas_cuda(atlas, levels)
+        pn, pr = fast_cuda.fast_nms_atlas_plain(atlas, levels)
         torch.cuda.synchronize()
         err = max(float((nms - pn).abs().max()), float((raw - pr).abs().max()))
         exact = bool(torch.equal(nms, pn)) and bool(torch.equal(raw, pr))
-        k_ms = time_ms(lambda: fast_cuda.fast_nms_cuda(img))
-        p_ms = time_ms(lambda: fast_cuda.fast_nms_raw_plain(img))
-        d_ms = device_ms(lambda: fast_cuda.fast_nms_cuda(img),
-                         "fast_nms_kernel")
-        bytes_s = H * W * FAST_BYTES_PER_PX / PEAK_BYTES_PER_S
-        ops_s = H * W * FAST_OPS_PER_PX / PEAK_F32_OPS_PER_S
+        k_ms = time_ms(lambda: fast_cuda.fast_nms_atlas_cuda(atlas, levels))
+        p_ms = time_ms(lambda: fast_cuda.fast_nms_atlas_plain(atlas, levels),
+                       reps=5, warm=1)
+        call = lambda: fast_cuda.fast_nms_atlas_cuda(atlas, levels)
+        d_ms = device_ms(call, "fast_nms_atlas_kernel")
+        q_ms, h_us = queued_ms(call), host_us(call)
+        px = n_img * sum(h * w for h, w in levels)
+        nbytes = px * FAST_IN_BYTES_PER_PX + \
+            G * Hp * Wp * FAST_OUT_BYTES_PER_PLANE_PX
+        bytes_s = nbytes / PEAK_BYTES_PER_S
+        ops_s = px * FAST_OPS_PER_PX / PEAK_F32_OPS_PER_S
         bound_s = max(bytes_s, ops_s)
-        rows.append(dict(shape=(H, W), exact=exact, err=err, ms=k_ms,
-                         device_ms=d_ms, plain_ms=p_ms,
-                         bound_ms=bound_s * 1e3,
+        rows.append(dict(name=name, exact=exact, err=err, ms=k_ms,
+                         device_ms=d_ms, queued_ms=q_ms, host_us=h_us,
+                         plain_ms=p_ms, bound_ms=bound_s * 1e3,
                          bound_by="bytes" if bytes_s >= ops_s
                          else "operations"))
-        print(f"  fast_nms {H}x{W}: exact={exact} max_abs_err={err} "
-              f"call {k_ms:.4f} ms (kernel on the device {_dev(d_ms)})  "
-              f"plain {p_ms:.4f} ms  bound {bound_s * 1e3:.5f} ms",
-              flush=True)
+        print(f"  fast_nms {name} ({G} planes of {Hp}x{Wp}, {px} level px): "
+              f"exact={exact} max_abs_err={err} call {k_ms:.4f} ms (kernel "
+              f"on the device {_dev(d_ms)}, queued {q_ms:.5f} ms, host "
+              f"{h_us:.1f} us a call)  plain {p_ms:.4f} ms  bound "
+              f"{bound_s * 1e3:.5f} ms ({rows[-1]['bound_by']}: {nbytes} B, "
+              f"{px * FAST_OPS_PER_PX} f32 ops)", flush=True)
     return rows
-
-
-def pose_problem(gen, B: int, N: int, stereo_frac: float, bf: float):
-    """B seeded pose problems on the card: points 2-8 m ahead, a pose ~0.05
-    off the truth, half-pixel noise, ~10% outliers, ~3% invalid rows."""
-    from orb_slam2_tpu_torch.core import camera, lie
-    dev = "cuda"
-    K = torch.tensor([500.0, 500.0, 320.0, 240.0], device=dev)
-    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
-    uni = lambda *s: torch.rand(s, generator=gen, device=dev)
-    pw = rnd(B, N, 3) * torch.tensor([2.0, 2.0, 1.0], device=dev) + \
-        torch.tensor([0.0, 0.0, 5.0], device=dev)
-    T_true = lie.se3_exp(rnd(B, 6) * 0.05)
-    pc = lie.se3_apply(T_true[:, None], pw)
-    uv = camera.project(K, pc) + rnd(B, N, 2) * 0.5
-    out = uni(B, N) < 0.1
-    uv = torch.where(out[..., None], uv + rnd(B, N, 2) * 30.0, uv)
-    is_st = uni(B, N) < stereo_frac
-    ur = torch.where(is_st, uv[..., 0] - bf / pc[..., 2] + rnd(B, N) * 0.5,
-                     -1.0)
-    octv = torch.randint(0, 8, (B, N), generator=gen, device=dev)
-    inv_s2 = 1.0 / (1.2 ** 2) ** octv.to(torch.float32)
-    valid = uni(B, N) > 0.03
-    T0 = lie.se3_compose(lie.se3_exp(rnd(B, 6) * 0.05), T_true)
-    return T0, pw, uv, ur, inv_s2, valid, is_st, K
 
 
 def check_pose_lm(pose_lm_cuda, pose_opt, BAConfig):
     """Kernel vs plain version at the main path's shapes; timings; bound."""
+    from orb_slam2_tpu_torch.pose_lm_profile import pose_problem
     gen = torch.Generator(device="cuda").manual_seed(1)
     cfg, bf = BAConfig(), 40.0
     rows = []
@@ -228,32 +267,33 @@ def check_pose_lm(pose_lm_cuda, pose_opt, BAConfig):
         p_ms = time_ms(lambda: [pose_opt.pose_optimize_plain(
             T0[b], pw[b], uv[b], ur[b], isig[b], valid[b], st[b], K, bf, cfg)
             for b in range(B)], reps=3, warm=1)
-        d_ms = device_ms(lambda: pose_lm_cuda.pose_lm_cuda(*args),
-                         "pose_lm_kernel")
-        # operations this data needs: the iterations each problem ran over
-        # its active points (bounded by the valid ones), plus the
-        # reclassifications; and the most the 4 x 10 schedule could need
+        call = lambda: pose_lm_cuda.pose_lm_cuda(*args)
+        d_ms = device_ms(call, "pose_lm_kernel")
+        q_ms, h_us = queued_ms(call), host_us(call)
+        # operations this data needs: a linearization over the active
+        # points (bounded by the valid ones) at each iteration each problem
+        # ran and at each round's start, plus the final classification;
+        # and the most the 4 x 10 schedule could need
         n_act = valid.sum(1).to(torch.float64)
-        iters = kit.to(torch.float64)
-        rounds = cfg.pose_opt_rounds + 1
-        ops = float((n_act * iters * POSE_OPS_PER_PT_ITER +
-                     N * rounds * POSE_OPS_PER_PT_ROUND).sum())
-        ops_max = B * N * (cfg.pose_opt_rounds * cfg.pose_opt_iters *
-                           POSE_OPS_PER_PT_ITER +
-                           rounds * POSE_OPS_PER_PT_ROUND)
+        passes = kit.to(torch.float64) + cfg.pose_opt_rounds
+        ops = float((n_act * passes * POSE_OPS_PER_PT_PASS +
+                     N * POSE_OPS_PER_PT_FINAL).sum())
+        ops_max = B * N * ((cfg.pose_opt_iters + 1) * cfg.pose_opt_rounds *
+                           POSE_OPS_PER_PT_PASS + POSE_OPS_PER_PT_FINAL)
         nbytes = B * (N * POSE_BYTES_PER_PT + POSE_BYTES_PER_PROBLEM)
         bytes_s = nbytes / PEAK_BYTES_PER_S
         ops_s = ops / PEAK_F32_OPS_PER_S
         bound_ms = max(bytes_s, ops_s) * 1e3
         rows.append(dict(name=name, err=err, agree=agree, dn=dn, same=same,
-                         ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
-                         bound_ms=bound_ms,
+                         ms=k_ms, device_ms=d_ms, queued_ms=q_ms,
+                         host_us=h_us, plain_ms=p_ms, bound_ms=bound_ms,
                          bound_by="bytes" if bytes_s >= ops_s
                          else "operations"))
         print(f"  pose_lm {name}: max_abs_err {err:.3e}, inliers agree "
               f"{agree:.4f}, n_inliers within {dn}, two launches "
               f"bit-identical {same}; LM iterations {kit.tolist()}; call "
-              f"{k_ms:.4f} ms (kernel on the device {_dev(d_ms)})  plain "
+              f"{k_ms:.4f} ms (kernel on the device {_dev(d_ms)}, queued "
+              f"{q_ms:.5f} ms, host {h_us:.1f} us a call)  plain "
               f"{p_ms:.2f} ms  bound {bound_ms:.6f} ms ({ops:.4g} f32 ops "
               f"this data, {ops_max:.4g} at 4 x 10 iterations; {nbytes} B)",
               flush=True)
@@ -262,6 +302,44 @@ def check_pose_lm(pose_lm_cuda, pose_opt, BAConfig):
         check(dn <= 2, f"pose_lm {name}: n_inliers differ by {dn}")
         check(same, f"pose_lm {name}: two launches differ")
     return rows
+
+
+def sweep_clusters(pose_lm_cuda, pose_opt, BAConfig, libs):
+    """The pose LM built with each cluster size, on 8 seeded N = 1024 mono
+    problems: pose within 1e-4 of the plain version, device and call
+    times, LM iterations."""
+    from orb_slam2_tpu_torch.pose_lm_profile import pose_problem
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cfg, bf = BAConfig(), 40.0
+    probs = [pose_problem(gen, 1, 1024, 0.0, bf) for _ in range(8)]
+    plain = [pose_opt.pose_optimize_plain(T0[0], pw[0], uv[0], ur[0], isig[0],
+                                          valid[0], st[0], K, bf, cfg).T
+             for T0, pw, uv, ur, isig, valid, st, K in probs]
+    out = {}
+    for c, lib in libs.items():
+        dev_ms, queued, call_ms, iters = [], [], [], []
+        for prob, pT in zip(probs, plain):
+            args = tuple(prob) + (bf, cfg)
+            T, _, _, _, it = pose_lm_cuda.run(lib, *args)
+            torch.cuda.synchronize()
+            err = float((T[0] - pT).abs().max())
+            check(err <= 1e-4, f"pose_lm cluster {c}: pose differs by {err}")
+            call = lambda: pose_lm_cuda.run(lib, *args)
+            dev_ms.append(device_ms(call, "pose_lm_kernel"))
+            queued.append(queued_ms(call))
+            call_ms.append(time_ms(call))
+            iters.append(int(it[0]))
+        seen = [d for d in dev_ms if d is not None]
+        out[c] = dict(device_ms=statistics.mean(seen) if seen else None,
+                      queued_ms=statistics.mean(queued),
+                      call_ms=statistics.mean(call_ms), iters=iters)
+        print(f"  pose_lm cluster of {c} block(s): device ms mean "
+              f"{_dev(out[c]['device_ms'])} of {len(seen)} problems "
+              f"({', '.join(_dev(d) for d in dev_ms)}), queued mean "
+              f"{out[c]['queued_ms']:.5f} ms "
+              f"({', '.join(f'{q:.5f}' for q in queued)}), call ms mean "
+              f"{out[c]['call_ms']:.4f}; LM iterations {iters}", flush=True)
+    return out
 
 
 def run_slam(SLAM, cfg, seq, stop, start=0, slam=None, **kw):
@@ -289,8 +367,8 @@ def phase_main(SLAM, cfg, seq, evaluate, counters):
     launches = dict(fast_nms=fast_cuda.launches,
                     pose_lm=pose_lm_cuda.launches)
     calls = pose_opt.cuda_calls
-    check(launches["fast_nms"] == cfg.orb.n_levels * slam.frame_count,
-          f"fast_nms launches {launches['fast_nms']} != {cfg.orb.n_levels} x "
+    check(launches["fast_nms"] == slam.frame_count,
+          f"fast_nms launches {launches['fast_nms']} != one for each of "
           f"{slam.frame_count} frames")
     off_card = [f for st in (slam.state, slam.ts) for f, v in
                 zip(st._fields, st) if v.device.type != "cuda"]
@@ -428,29 +506,38 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     counters = (fast_cuda, pose_lm_cuda, pose_opt)
     try:
-        # 2. build both kernels at once (one nvcc each)
+        # 2. build every kernel at once (one nvcc each): FAST, the pose LM
+        # as the source has it, and the pose LM at each cluster size
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(2) as ex:
-            libs = list(ex.map(lambda m: m.build(verbose=True),
-                               (fast_cuda, pose_lm_cuda)))
+        jobs = [lambda: fast_cuda.build(verbose=True),
+                lambda: pose_lm_cuda.build(verbose=True)] + [
+            (lambda c=c: pose_lm_cuda.build(cluster=c)) for c in CLUSTERS]
+        with ThreadPoolExecutor(len(jobs)) as ex:
+            libs = list(ex.map(lambda job: job(), jobs))
         print(f"build: {libs} in {time.perf_counter() - t0:.2f} s",
               flush=True)
 
-        # 3. FAST kernel vs plain version, at the main path's shapes
+        # 3. FAST kernel vs plain version, on the main path's atlas, the
+        # small configuration's and a two-image one
         cfg = config.SLAMConfig()
         cam = cfg.camera
-        levels = pyramid.level_shapes(cam.height, cam.width,
-                                      cfg.orb.n_levels, cfg.orb.scale_factor)
-        rows = check_fast(fast_cuda, levels + [(70, 128)])
+        level_shapes = lambda h, w: pyramid.level_shapes(
+            h, w, cfg.orb.n_levels, cfg.orb.scale_factor)
+        main_levels = level_shapes(cam.height, cam.width)
+        rows = check_fast(fast_cuda, [
+            ("main path 640x480", main_levels, 1),
+            ("small configuration 320x240", level_shapes(240, 320), 1),
+            ("two 640x480 images", main_levels, 2)])
         check(all(r["exact"] for r in rows),
               "fast_nms kernel disagrees with its plain version")
-        frame_rows = rows[:len(levels)]
-        if all(r["device_ms"] is not None for r in frame_rows):
-            print(f"fast_nms, one frame's 8 levels: calls "
-                  f"{sum(r['ms'] for r in frame_rows):.4f} ms, kernels on "
-                  f"the device {sum(r['device_ms'] for r in frame_rows):.5f}"
-                  f" ms, bound {sum(r['bound_ms'] for r in frame_rows):.5f}"
-                  " ms", flush=True)
+        frame_row = rows[0]
+        print(f"fast_nms, one frame's 8 levels in one launch: call "
+              f"{frame_row['ms']:.4f} ms, kernel on the device "
+              f"{_dev(frame_row['device_ms'])} (queued "
+              f"{frame_row['queued_ms']:.5f} ms), bound "
+              f"{frame_row['bound_ms']:.5f} ms ({frame_row['bound_by']}); "
+              f"second slice, 8 launches: calls {SECOND_SLICE_FAST[1]} ms, "
+              f"kernels on the device {SECOND_SLICE_FAST[0]} ms", flush=True)
         seq = synthetic.generate(cam, n_frames=N_FRAMES, n_points=500,
                                  trajectory="xyz", seed=0)
         ext_gpu = build_atlas_extractor(cfg.orb, cam.height, cam.width,
@@ -465,8 +552,18 @@ def main() -> int:
         check(float(same.float().mean()) >= 0.99,
               "extractor on the card disagrees with the CPU run")
 
-        # 4. pose-LM kernel vs plain version
+        # 4. pose-LM kernel vs plain version, then each cluster size
         pose_rows = check_pose_lm(pose_lm_cuda, pose_opt, config.BAConfig)
+        main_row = pose_rows[0]      # the shape tracking gives it: B=1, N=1024
+        print(f"pose_lm N=1024 mono: call {main_row['ms']:.4f} ms, kernel on "
+              f"the device {_dev(main_row['device_ms'])} (queued "
+              f"{main_row['queued_ms']:.5f} ms; cluster of "
+              f"{pose_lm_cuda.load().cluster} blocks); second slice, one "
+              f"block: call {SECOND_SLICE_POSE[1]} ms, kernel on the device "
+              f"{SECOND_SLICE_POSE[0]} ms",
+              flush=True)
+        sweep_clusters(pose_lm_cuda, pose_opt, config.BAConfig,
+                       {c: pose_lm_cuda.load(c) for c in CLUSTERS})
 
         # 5. main path, vocabulary on
         launches = phase_main(SLAM, cfg, seq, evaluate, counters)
@@ -485,18 +582,17 @@ def main() -> int:
     except PhaseError as e:
         return fail(str(e))
 
-    main_row = pose_rows[0]          # the shape tracking gives it: B=1, N=1024
     kernels = [{
         "name": "fast_nms", "route": "cuda",
         "source": "orb_slam2_tpu_torch/csrc/fast_nms.cu",
         "replaces": "orb_slam2_tpu/frontend/pallas_fast.py:42",
         "launches": launches["fast_nms"],
         "max_abs_err": max(r["err"] for r in rows),
-        # one frame's worth of launches: the 8 pyramid levels
-        "ms": sum(r["ms"] for r in frame_rows),
-        "plain_ms": sum(r["plain_ms"] for r in frame_rows),
-        "bound_ms": sum(r["bound_ms"] for r in frame_rows),
-        "bound_by": frame_rows[0]["bound_by"],
+        # one frame: the main path's atlas of 8 levels, one launch
+        "ms": frame_row["ms"],
+        "plain_ms": frame_row["plain_ms"],
+        "bound_ms": frame_row["bound_ms"],
+        "bound_by": frame_row["bound_by"],
         "library_ms": None,
     }, {
         "name": "pose_lm", "route": "cuda",

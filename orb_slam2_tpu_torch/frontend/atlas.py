@@ -5,7 +5,8 @@ Every stage after the pyramid works on a zero-padded level atlas
 [L, Hp, Wp] (Hp, Wp = level-0 size):
 
   pyramid (cascade resize)   -> JAX's antialiased bilinear weights, 2 matmuls
-  FAST-9 + 3x3 NMS           -> the CUDA kernel, once per level (fast_cuda)
+  FAST-9 + 3x3 NMS           -> the CUDA kernel, one launch over the atlas
+                                (fast_cuda)
   dual-threshold 30 px cells -> one reshape/tile max over the score atlas
   spatial selection          -> fine-tile top-2 + coarse-winner bonus + one
                                 top-k per level
@@ -27,7 +28,8 @@ import torch.nn.functional as F
 from orb_slam2_tpu_torch.config import ORBConfig
 from orb_slam2_tpu_torch.frontend import orb, pyramid
 from orb_slam2_tpu_torch.frontend.extractor import Features, per_level_quota
-from orb_slam2_tpu_torch.frontend.fast_cuda import fast_nms_raw
+from orb_slam2_tpu_torch import resolve_device
+from orb_slam2_tpu_torch.frontend.fast_cuda import fast_nms_atlas
 from orb_slam2_tpu_torch.map.state import stable_topk
 
 FINE_TILE = 8       # fine selection tile (px, level coords): top-2 winners
@@ -82,7 +84,8 @@ def _para(l, c, r):
 
 def build_atlas_extractor(cfg: ORBConfig, height: int, width: int,
                           device=None):
-    """Return `extract(img [H, W] f32) -> Features` (cap slots)."""
+    """Return `extract(img [H, W] f32) -> Features` (cap slots), with its
+    constants on `device` (CUDA unless the caller names one)."""
     L = cfg.n_levels
     quotas = per_level_quota(cfg.n_features, L, cfg.scale_factor)
     shapes = pyramid.level_shapes(height, width, L, cfg.scale_factor)
@@ -92,7 +95,7 @@ def build_atlas_extractor(cfg: ORBConfig, height: int, width: int,
         raise ValueError(f"max_keypoints {cap} < quota sum {sum(quotas)}")
     Hp, Wp = height, width
     border = cfg.edge_threshold - 3
-    dev = torch.device(device) if device is not None else None
+    dev = resolve_device(device)
     tens = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
 
     lvl_h = tens([s[0] for s in shapes], torch.int64)
@@ -153,14 +156,8 @@ def build_atlas_extractor(cfg: ORBConfig, height: int, width: int,
         pad = lambda a: F.pad(a, (0, Wp - a.shape[-1], 0, Hp - a.shape[-2]))
         atlas = torch.stack([pad(lv) for lv in levels])          # [L, Hp, Wp]
 
-        # ---- FAST-9 + NMS per level (the CUDA kernel on the card) ----
-        smaps, raws = [], []
-        for lv in levels:
-            s, r = fast_nms_raw(lv)
-            smaps.append(pad(s))
-            raws.append(pad(r))
-        score = torch.stack(smaps)
-        raw = torch.stack(raws)
+        # ---- FAST-9 + NMS, all levels at once (one kernel on the card) ----
+        score, raw = fast_nms_atlas(atlas, shapes)
         zero = torch.zeros((), dtype=score.dtype, device=score.device)
 
         # ---- dual-threshold 30 px cells (ORBextractor.cc:809-816) ----

@@ -36,6 +36,7 @@ def per_level_quota(n_features: int, n_levels: int, scale: float) -> List[int]:
 
 def build_extractor(cfg: ORBConfig, height: int, width: int, device=None):
     """Return `extract(img [H, W] f32) -> Features` for a fixed image size
-    (the level-atlas formulation, frontend/atlas.py)."""
+    (the level-atlas formulation, frontend/atlas.py), on `device`: CUDA
+    unless the caller names one (raises without a card)."""
     from orb_slam2_tpu_torch.frontend.atlas import build_atlas_extractor
     return build_atlas_extractor(cfg, height, width, device=device)

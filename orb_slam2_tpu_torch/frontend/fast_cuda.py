@@ -1,12 +1,15 @@
-"""Fused FAST-9 score + 3x3 NMS: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Fused FAST-9 score + 3x3 NMS over a whole level atlas: the CUDA kernel's
+wrapper and its plain PyTorch version.
 
-`fast_nms_raw(img)` returns `(nms, raw)` for one [H, W] f32 pyramid level.
-For a CUDA tensor it launches the hand-written kernel in csrc/fast_nms.cu
-(built with nvcc for sm_90a into `_build/` at first use and loaded with
-ctypes); for a CPU tensor it runs `fast_nms_raw_plain`, the same function in
-tensor ops.  There is no fallback from one to the other: a CUDA tensor that
-the kernel cannot take raises.
+`fast_nms_atlas(atlas, shapes)` returns `(nms, raw)`, both [G, Hp, Wp] f32,
+for a zero-padded level atlas [G, Hp, Wp] (G = n_images * L, image-major)
+whose plane g holds level g % L, of shape `shapes[g % L]`, in its top-left
+corner; both maps are zero outside each level.  For a CUDA tensor it makes
+ONE launch of the hand-written kernel in csrc/fast_nms.cu (built with nvcc
+for sm_90a into `_build/` at first use and loaded with ctypes) for all
+levels of all images; for a CPU tensor it runs `fast_nms_atlas_plain`, the
+same function in tensor ops.  There is no fallback from one to the other:
+a CUDA tensor that the kernel cannot take raises.
 
 `launches` counts the kernel's launches, so a run can show that its main
 path went through the kernel.
@@ -15,6 +18,7 @@ path went through the kernel.
 from __future__ import annotations
 
 import ctypes
+from typing import Sequence, Tuple
 
 import torch
 
@@ -28,9 +32,36 @@ _lib = None
 
 
 def fast_nms_raw_plain(img: torch.Tensor):
-    """(nms, raw) in tensor ops: `nms3x3(fast_score_map(img))`."""
+    """(nms, raw) of one [H, W] level in tensor ops:
+    `nms3x3(fast_score_map(img))`."""
     raw = fast.fast_score_map(img)
     return fast.nms3x3(raw), raw
+
+
+def fast_nms_atlas_plain(atlas: torch.Tensor,
+                         shapes: Sequence[Tuple[int, int]]):
+    """`fast_nms_atlas` in tensor ops: `fast_nms_raw_plain` on each level's
+    crop, zero-padded to the atlas plane."""
+    _check(atlas, shapes)
+    nms, raw = torch.zeros_like(atlas), torch.zeros_like(atlas)
+    for g in range(atlas.shape[0]):
+        h, w = shapes[g % len(shapes)]
+        nms[g, :h, :w], raw[g, :h, :w] = fast_nms_raw_plain(atlas[g, :h, :w])
+    return nms, raw
+
+
+def _check(atlas: torch.Tensor, shapes):
+    if atlas.dim() != 3 or atlas.dtype != torch.float32:
+        raise ValueError(f"expected a [G, Hp, Wp] float32 atlas, got "
+                         f"{tuple(atlas.shape)} {atlas.dtype}")
+    G, Hp, Wp = atlas.shape
+    L = len(shapes)
+    if L < 1 or G % L != 0:
+        raise ValueError(f"{G} atlas planes are not a multiple of {L} levels")
+    for h, w in shapes:
+        if not (1 <= h <= Hp and 1 <= w <= Wp):
+            raise ValueError(f"level {h}x{w} does not fit the {Hp}x{Wp} "
+                             "atlas plane")
 
 
 def build(verbose: bool = False) -> str:
@@ -42,40 +73,46 @@ def _load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build())
-        lib.fast_nms_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                        ctypes.c_void_p, ctypes.c_int,
-                                        ctypes.c_int, ctypes.c_void_p]
-        lib.fast_nms_launch.restype = ctypes.c_int
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.fast_nms_atlas_launch.argtypes = [p, p, p, ctypes.POINTER(i), i,
+                                              i, i, i, p]
+        lib.fast_nms_atlas_launch.restype = ctypes.c_int
+        lib.fast_nms_max_levels.argtypes = []
+        lib.fast_nms_max_levels.restype = ctypes.c_int
+        lib.max_levels = lib.fast_nms_max_levels()
         _lib = lib
     return _lib
 
 
-def fast_nms_cuda(img: torch.Tensor):
-    """Launch the kernel on a CUDA [H, W] f32 tensor; returns (nms, raw)."""
+def fast_nms_atlas_cuda(atlas: torch.Tensor,
+                        shapes: Sequence[Tuple[int, int]]):
+    """One kernel launch over a CUDA [G, Hp, Wp] f32 atlas; (nms, raw)."""
     global launches
-    if img.dim() != 2 or img.dtype != torch.float32 or not img.is_cuda:
-        raise ValueError(f"expected a CUDA [H, W] float32 tensor, got "
-                         f"{tuple(img.shape)} {img.dtype} on {img.device}")
-    H, W = img.shape
-    if H < 7 or W < 7:
-        raise ValueError(f"level {H}x{W} is smaller than the FAST footprint")
-    img = img.contiguous()
-    nms = torch.empty_like(img)
-    raw = torch.empty_like(img)
+    if not atlas.is_cuda:
+        raise ValueError(f"expected a CUDA atlas, got one on {atlas.device}")
+    _check(atlas, shapes)
+    G, Hp, Wp = atlas.shape
+    L = len(shapes)
     lib = _load()
-    with torch.cuda.device(img.device):
-        err = lib.fast_nms_launch(img.data_ptr(), nms.data_ptr(),
-                                  raw.data_ptr(), H, W,
-                                  torch.cuda.current_stream().cuda_stream)
+    if L > lib.max_levels:
+        raise ValueError(f"{L} levels > the kernel's {lib.max_levels}")
+    hw = (ctypes.c_int * (2 * L))(*[h for h, _ in shapes],
+                                  *[w for _, w in shapes])
+    atlas = atlas if atlas.is_contiguous() else atlas.contiguous()
+    nms, raw = torch.empty_like(atlas), torch.empty_like(atlas)
+    err = cuda_build.launch(atlas.device, lib.fast_nms_atlas_launch,
+                            atlas.data_ptr(), nms.data_ptr(), raw.data_ptr(),
+                            hw, L, G, Hp, Wp)
     if err != 0:
         raise RuntimeError(f"fast_nms kernel launch failed: cudaError {err}")
     launches += 1
     return nms, raw
 
 
-def fast_nms_raw(img: torch.Tensor):
-    """[H, W] f32 level -> (nms score, raw score).  CUDA tensors go through
-    the kernel; CPU tensors through the plain version."""
-    if img.is_cuda:
-        return fast_nms_cuda(img)
-    return fast_nms_raw_plain(img)
+def fast_nms_atlas(atlas: torch.Tensor, shapes: Sequence[Tuple[int, int]]):
+    """[G, Hp, Wp] f32 level atlas -> (nms score, raw score), each
+    [G, Hp, Wp].  CUDA tensors go through the kernel (one launch); CPU
+    tensors through the plain version."""
+    if atlas.is_cuda:
+        return fast_nms_atlas_cuda(atlas, shapes)
+    return fast_nms_atlas_plain(atlas, shapes)

@@ -44,7 +44,8 @@ def _finish(cfg: SLAMConfig, feats: Features, ur, depth, frame_id, timestamp):
 
 
 def build_mono_frame_fn(cfg: SLAMConfig, device=None):
-    """Returns (image [H, W] f32, frame_id, timestamp) -> Frame."""
+    """Returns (image [H, W] f32, frame_id, timestamp) -> Frame, its
+    extractor on `device`: CUDA unless the caller names one."""
     extract = build_extractor(cfg.orb, cfg.camera.height, cfg.camera.width,
                               device=device)
 

@@ -108,7 +108,8 @@ def build_full_step(cfg: SLAMConfig, device=None, transform=None):
     extraction -> tracking -> keyframe decision -> conditional insertion
     (with the keyframe's BoW vector when `transform`, the vocabulary
     transform, is given) -> one integration stage (JAX `full_step`,
-    system.py:203-232)."""
+    system.py:203-232).  Runs on `device`: CUDA unless the caller names
+    one."""
     frame_fn = frame_mod.build_mono_frame_fn(cfg, device)
     track_step = tracking.build_track_step(cfg)
 

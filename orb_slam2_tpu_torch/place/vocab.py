@@ -23,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from orb_slam2_tpu_torch import resolve_device
 from orb_slam2_tpu_torch.matching.hamming import pm1_from_packed
 
 
@@ -67,10 +68,12 @@ def build_transform(vocab: Vocabulary, pad_to: Optional[int] = None,
     its count times its weight: an integer count is order-free, so two runs
     on the card agree bit for bit (a float scatter-add there would not).
 
-    `pad_to` zero-pads the bow vector to the map's k**depth capacity."""
+    `pad_to` zero-pads the bow vector to the map's k**depth capacity.  The
+    tree's tensors live on `device`: CUDA unless the caller names one."""
     if pad_to is not None and vocab.n_words > pad_to:
         raise ValueError(
             f"vocabulary has {vocab.n_words} words > pad_to={pad_to}")
+    device = resolve_device(device)
     children = torch.as_tensor(vocab.node_children, device=device).long()
     cpm1 = pm1_from_packed(torch.as_tensor(vocab.node_desc, device=device))
     wid = torch.as_tensor(vocab.word_id, device=device)

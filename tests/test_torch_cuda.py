@@ -1,6 +1,7 @@
 """Tests of the port that need a CUDA card: the hand-written kernels
-against their plain PyTorch versions on the card — FAST-9+NMS bit-exact,
-the pose LM within 1e-4 with the same inliers, two launches bit-identical.
+against their plain PyTorch versions on the card — FAST-9+NMS over a level
+atlas bit-exact, the pose LM within 1e-4 with the same inliers, two
+launches bit-identical.
 They skip without a card.  This file imports neither JAX nor the JAX
 package, so it also runs where only PyTorch is installed:
 
@@ -30,12 +31,34 @@ def _card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
 def test_fast_kernel_matches_plain_on_card(shape):
+    """One level as a one-plane atlas: the kernel equals the plain
+    version."""
     _card()
     rng = np.random.RandomState(shape[0] * 1000 + shape[1])
     img = torch.from_numpy((rng.rand(*shape) * 255).astype(np.float32)).cuda()
     before = fast_cuda.launches
-    kn, kr = fast_cuda.fast_nms_raw(img)
-    pn, pr = fast_cuda.fast_nms_raw_plain(img)
+    kn, kr = fast_cuda.fast_nms_atlas(img[None], [shape])
+    pn, pr = fast_cuda.fast_nms_atlas_plain(img[None], [shape])
+    torch.cuda.synchronize()
+    assert fast_cuda.launches == before + 1
+    assert torch.equal(kn, pn) and torch.equal(kr, pr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,n_images", [(480, 640, 1), (240, 320, 1),
+                                          (480, 640, 2)])
+def test_fast_atlas_kernel_matches_plain_on_card(H, W, n_images):
+    """All 8 levels of n_images images in one launch, bit-exact against the
+    plain version level by level; seeded values also outside the levels,
+    which neither may read."""
+    _card()
+    levels = pyramid.level_shapes(H, W, 8, 1.2)
+    rng = np.random.RandomState(H + n_images)
+    atlas = torch.from_numpy((rng.rand(8 * n_images, H, W) * 255).astype(
+        np.float32)).cuda()
+    before = fast_cuda.launches
+    kn, kr = fast_cuda.fast_nms_atlas(atlas, levels)
+    pn, pr = fast_cuda.fast_nms_atlas_plain(atlas, levels)
     torch.cuda.synchronize()
     assert fast_cuda.launches == before + 1
     assert torch.equal(kn, pn) and torch.equal(kr, pr)
@@ -43,8 +66,9 @@ def test_fast_kernel_matches_plain_on_card(shape):
 
 @pytest.mark.cuda
 def test_extractor_on_card_matches_cpu():
-    """One frame through the atlas extractor on the card (8 kernel
-    launches) and on the CPU (plain version): the same keypoint slots."""
+    """One frame through the atlas extractor on the card (one kernel
+    launch for all levels) and on the CPU (plain version): the same
+    keypoint slots."""
     _card()
     from orb_slam2_tpu_torch.frontend.atlas import build_atlas_extractor
     from orb_slam2_tpu_torch.io import synthetic
@@ -55,7 +79,7 @@ def test_extractor_on_card_matches_cpu():
     g = build_atlas_extractor(cfg.orb, 480, 640, "cuda")(
         torch.from_numpy(img).cuda())
     c = build_atlas_extractor(cfg.orb, 480, 640, "cpu")(torch.from_numpy(img))
-    assert fast_cuda.launches == before + cfg.orb.n_levels
+    assert fast_cuda.launches == before + 1
     same = ((g.valid.cpu() == c.valid) & (g.octave.cpu() == c.octave) &
             ((g.uv.cpu() - c.uv).abs().amax(-1) <= 1e-3))
     assert float(same.float().mean()) >= 0.99
@@ -89,11 +113,12 @@ def _pose_problem(seed, n, stereo_frac, bf=40.0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,stereo_frac", [(1024, 0.0), (1024, 1 / 3),
-                                           (64, 0.0)])
+                                           (64, 0.0), (8192, 0.0)])
 def test_pose_lm_kernel_matches_plain_on_card(n, stereo_frac):
     """Pose within 1e-4 (float32 sums in another order), inlier masks equal
     on >= 99% of points and counts within 2 (a chi^2 at its threshold may
-    flip); `pose_optimize` on CUDA tensors launches the kernel once."""
+    flip); `pose_optimize` on CUDA tensors launches the kernel once.
+    N = 8192 is the most a launch takes (8 points a thread)."""
     _card()
     p = _pose_problem(n, n, stereo_frac)
     before, calls = pose_lm_cuda.launches, pose_opt.cuda_calls
@@ -105,6 +130,23 @@ def test_pose_lm_kernel_matches_plain_on_card(n, stereo_frac):
     assert float((k.T - r.T).abs().max()) <= 1e-4
     assert float((k.inliers == r.inliers).float().mean()) >= 0.99
     assert abs(int(k.n_inliers) - int(r.n_inliers)) <= 2
+
+
+@pytest.mark.cuda
+def test_pose_lm_kernel_few_valid_rows_on_card():
+    """N = 1024 with all rows invalid but 12, all in the first 64: the
+    cluster's other blocks hold no active point and still take part in
+    every reduction."""
+    _card()
+    p = _pose_problem(5, 1024, 0.0)
+    p[5] = torch.zeros(1024, dtype=torch.bool, device="cuda")
+    p[5][:60:5] = True
+    k = pose_opt.pose_optimize(*p)
+    r = pose_opt.pose_optimize_plain(*p)
+    torch.cuda.synchronize()
+    assert float((k.T - r.T).abs().max()) <= 1e-4
+    assert float((k.inliers == r.inliers).float().mean()) >= 0.99
+    assert not bool(k.inliers[64:].any())
 
 
 @pytest.mark.cuda

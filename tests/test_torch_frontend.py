@@ -3,7 +3,7 @@
 * FAST-9 score and 3x3 NMS: min/max of differences of f32 values, so the
   port's plain version must equal both JAX's `fast.py` and the Pallas
   kernel (run in interpret mode, as tests/test_pallas.py runs it) bit for
-  bit, borders included.
+  bit, borders included; over a level atlas, level by level, zero-padded.
 * The cascade resize: JAX's antialiased bilinear `jax.image.resize` against
   the port's two weight matmuls (tolerances in the test).
 * The atlas extractor at 240x320: slot layout (uv, octave, valid) equal on
@@ -55,23 +55,69 @@ def test_fast_score_and_nms_match_jax_exactly(shape):
 
 @pytest.mark.parametrize("shape", FAST_SHAPES)
 def test_fast_plain_matches_pallas_interpret_exactly(shape):
+    """A one-level atlas through the port's entry point equals the Pallas
+    kernel on that level."""
     img = _img(shape, 1)
     pn, pr = fast_nms_raw_pallas(jnp.asarray(img), interpret=True)
     before = fast_cuda.launches
-    tn, tr = fast_cuda.fast_nms_raw(torch.from_numpy(img))
+    tn, tr = fast_cuda.fast_nms_atlas(torch.from_numpy(img)[None], [shape])
     assert fast_cuda.launches == before      # CPU tensor: plain version
-    np.testing.assert_array_equal(tn.numpy(), np.asarray(pn))
-    np.testing.assert_array_equal(tr.numpy(), np.asarray(pr))
+    np.testing.assert_array_equal(tn[0].numpy(), np.asarray(pn))
+    np.testing.assert_array_equal(tr[0].numpy(), np.asarray(pr))
+
+
+ATLAS_LEVELS = tpyr.level_shapes(240, 320, 8, 1.2)
+
+
+@pytest.fixture(scope="module")
+def pallas_level_maps():
+    """Two images' worth of 8 levels of 240x320 (seeded values everywhere,
+    also outside each level, which no map may read), and per level the
+    Pallas kernel's (nms, raw) in interpret mode, zero-padded to the
+    atlas plane."""
+    H, W = ATLAS_LEVELS[0]
+    atlas = (np.random.RandomState(7).rand(16, H, W) * 255).astype(np.float32)
+    nms, raw = np.zeros_like(atlas), np.zeros_like(atlas)
+    for g in range(16):
+        h, w = ATLAS_LEVELS[g % 8]
+        n, r = fast_nms_raw_pallas(jnp.asarray(atlas[g, :h, :w]),
+                                   interpret=True)
+        nms[g, :h, :w], raw[g, :h, :w] = np.asarray(n), np.asarray(r)
+    return atlas, nms, raw
+
+
+@pytest.mark.parametrize("n_images", [1, 2])
+def test_fast_atlas_plain_matches_pallas_per_level(pallas_level_maps,
+                                                   n_images):
+    """`fast_nms_atlas_plain` over an atlas of n_images x 8 levels equals,
+    bit for bit, the Pallas kernel run level by level and padded."""
+    atlas, jn, jr = pallas_level_maps
+    G = 8 * n_images
+    before = fast_cuda.launches
+    tn, tr = fast_cuda.fast_nms_atlas(torch.from_numpy(atlas[:G]),
+                                      ATLAS_LEVELS)
+    assert fast_cuda.launches == before
+    np.testing.assert_array_equal(tn.numpy(), jn[:G])
+    np.testing.assert_array_equal(tr.numpy(), jr[:G])
 
 
 def test_fast_kernel_wrapper_rejects_bad_input():
     """The CUDA entry refuses, before any launch, what the kernel does not
-    take: a tensor off the card, another dtype, another rank."""
+    take: a tensor off the card, another dtype, another rank, a level
+    larger than the plane, planes not a multiple of the levels."""
     before = fast_cuda.launches
-    for bad in (torch.zeros((32, 32)), torch.zeros((32, 32), dtype=torch.float64),
-                torch.zeros((2, 32, 32))):
+    lv = [(32, 32)]
+    for bad, shapes in ((torch.zeros((1, 32, 32)), lv),
+                        (torch.zeros((1, 32, 32), dtype=torch.float64), lv),
+                        (torch.zeros((32, 32)), lv),
+                        (torch.zeros((1, 32, 32)), [(33, 32)]),
+                        (torch.zeros((3, 32, 32)), lv * 2)):
         with pytest.raises(ValueError):
-            fast_cuda.fast_nms_cuda(bad)
+            fast_cuda.fast_nms_atlas_cuda(bad, shapes)
+    for bad, shapes in ((torch.zeros((1, 32, 32)), [(33, 32)]),
+                        (torch.zeros((3, 32, 32)), lv * 2)):
+        with pytest.raises(ValueError):
+            fast_cuda.fast_nms_atlas_plain(bad, shapes)
     assert fast_cuda.launches == before
 
 

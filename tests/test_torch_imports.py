@@ -62,3 +62,35 @@ def test_importing_the_port_loads_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def _builders():
+    """Each public builder of the port called with no device."""
+    from orb_slam2_tpu_torch import config
+    from orb_slam2_tpu_torch.frontend.atlas import build_atlas_extractor
+    from orb_slam2_tpu_torch.frontend.extractor import build_extractor
+    from orb_slam2_tpu_torch.pipeline.frame import build_mono_frame_fn
+    from orb_slam2_tpu_torch.pipeline.system import DEFAULT_VOCAB, \
+        build_full_step
+    from orb_slam2_tpu_torch.place.vocab import Vocabulary, build_transform
+    cfg = config.SLAMConfig()
+    return {
+        "build_atlas_extractor": lambda: build_atlas_extractor(cfg.orb, 48,
+                                                               64),
+        "build_extractor": lambda: build_extractor(cfg.orb, 48, 64),
+        "build_mono_frame_fn": lambda: build_mono_frame_fn(cfg),
+        "build_full_step": lambda: build_full_step(cfg),
+        "build_transform": lambda: build_transform(
+            Vocabulary.load(DEFAULT_VOCAB)),
+    }
+
+
+@pytest.mark.parametrize("name", ["build_atlas_extractor", "build_extractor",
+                                  "build_mono_frame_fn", "build_full_step",
+                                  "build_transform"])
+def test_builders_default_to_cuda(name, monkeypatch):
+    """With no device named, a builder puts its constants on the card, so
+    with no card it raises instead of running on the CPU."""
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _builders()[name]()
