@@ -13,15 +13,19 @@ each of which fails the run when it fails:
   3. FAST kernel: the all-level FAST-9+NMS kernel against its plain
      PyTorch version on the card, bit-exact, on the level atlas of the main
      path (8 levels of 640x480), of the small configuration (8 levels of
-     320x240) and of two 640x480 images; CUDA-event and torch.profiler
-     timings; one frame through the extractor on the card and on the CPU;
+     320x240), of two seeded 640x480 images and on the two-image atlas that
+     the stereo path builds from a rendered stereo pair; CUDA-event and
+     torch.profiler timings; one frame, and that stereo pair, through the
+     extractor on the card and on the CPU;
   4. pose-LM kernel: the one-launch pose LM against `pose_optimize_plain`
      on the card at N = 1024 mono, N = 1024 with a third of the rows
-     stereo, N = 64, and a batch of 4 problems (seeded, ~10% outliers):
-     pose within 1e-4, inlier masks agree on >= 99% of points, inlier
-     counts within 2, two launches bit-identical; call, device and plain
-     times; its bound; then the kernel at each cluster size on 8 seeded
-     N = 1024 mono problems: device and call times, LM iterations;
+     stereo, N = 1024 with every row stereo, N = 64, and a batch of 4
+     problems (seeded, ~10% outliers): pose within 1e-4, inlier masks agree
+     on >= 99% of points, inlier counts within 2, two launches
+     bit-identical; call, device and plain times; its bound; then the
+     kernel at each cluster size on 8 seeded N = 1024 mono problems: device
+     and call times, LM iterations; after phase 9, the same checks on a
+     problem recorded from a stereo frame of that run;
   5. main path: monocular SLAM at the default SLAMConfig (640x480, 1000
      features, 32768 map points, 512 keyframes) with the default vocabulary
      on, on the bench sequence (120 frames, 500 points, xyz trajectory,
@@ -37,7 +41,19 @@ each of which fails the run when it fails:
      54 of the 140 frames and never closes this loop): 1.3 revolutions,
      open and closed; the loop must fire and the closed ATE be <= 1.05 x
      the open one;
-  8. determinism: two fresh 30-frame runs give bit-identical poses.
+  8. determinism: two fresh 30-frame runs give bit-identical poses, mono
+     and stereo;
+  9. stereo main path: the bench's stereo configuration (bench.py
+     `_run_stereo`: the default SLAMConfig with sensor STEREO and bf = 40,
+     nothing cut) on its 60-frame sequence (500 points, xyz, seed 0) with
+     the right eye rendered from `right_poses`, through `SLAM.track_stereo`;
+     >= 90% tracked under the metric-ATE gate of test_stereo_e2e (0.06 m),
+     the state on the card, BoW on every keyframe, one FAST launch over 16
+     planes a frame, every pose LM through its kernel, depth points made by
+     a keyframe after the first;
+ 10. RGB-D main path: the same with sensor RGBD, fed the sequence's depth
+     maps, through `SLAM.track_rgbd`, under test_rgbd_e2e's 0.02 m; one
+     FAST launch over 8 planes a frame.
 
 Prints the card's name and power limit and a JSON line describing every
 ported kernel, then, as the last line, {"ok": true, "device": {...}}.  Exits
@@ -87,6 +103,11 @@ TRACKED_MIN_FRAC = 0.8
 N_FRAMES = 120
 DET_FRAMES = 30
 LOOP_FRAMES = 140
+# bench.py `_run_stereo`: 60 frames; the metric-ATE gates of
+# test_stereo_e2e / test_rgbd_e2e (tests/test_e2e.py), >= 90% tracked
+STEREO_FRAMES = 60
+DEPTH_ATE_GATE_M = {"stereo": 0.06, "rgbd": 0.02}
+DEPTH_TRACKED_MIN_FRAC = 0.9
 # the first slice's main path (vocabulary off, pose LM in tensor ops) on the
 # same card type (PERF.md, NVIDIA H100 80GB HBM3, 700 W): steady fps, frame
 # ms p50 / p90 / max
@@ -200,14 +221,17 @@ def _dev(d_ms):
 
 def check_fast(fast_cuda, atlases):
     """Bit-exact all-level kernel vs plain version on each (name, level
-    shapes, n_images) atlas; timings and bound per atlas."""
+    shapes, n_images, atlas) atlas (atlas None: seeded values everywhere,
+    also outside the levels, which are never read); timings and bound per
+    atlas."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for name, levels, n_img in atlases:
+    for name, levels, n_img, atlas in atlases:
         Hp, Wp = levels[0]
         G = len(levels) * n_img
-        # seeded values everywhere, also outside the levels (never read)
-        atlas = torch.rand((G, Hp, Wp), generator=gen, device="cuda") * 255.0
+        if atlas is None:
+            atlas = torch.rand((G, Hp, Wp), generator=gen,
+                               device="cuda") * 255.0
         nms, raw = fast_cuda.fast_nms_atlas_cuda(atlas, levels)
         pn, pr = fast_cuda.fast_nms_atlas_plain(atlas, levels)
         torch.cuda.synchronize()
@@ -244,13 +268,25 @@ def check_pose_lm(pose_lm_cuda, pose_opt, BAConfig):
     from orb_slam2_tpu_torch.pose_lm_profile import pose_problem
     gen = torch.Generator(device="cuda").manual_seed(1)
     cfg, bf = BAConfig(), 40.0
-    rows = []
+    problems = []
     for name, B, N, sf in (("N=1024 mono", 1, 1024, 0.0),
                            ("N=1024 third stereo", 1, 1024, 1.0 / 3.0),
+                           ("N=1024 all stereo", 1, 1024, 1.0),
                            ("N=64 mono", 1, 64, 0.0),
                            ("B=4 N=1024 mono", 4, 1024, 0.0)):
-        T0, pw, uv, ur, isig, valid, st, K = pose_problem(gen, B, N, sf, bf)
-        args = (T0, pw, uv, ur, isig, valid, st, K, bf, cfg)
+        problems.append((name, pose_problem(gen, B, N, sf, bf) + (bf, cfg)))
+    return check_pose_problems(pose_lm_cuda, pose_opt, problems)
+
+
+def check_pose_problems(pose_lm_cuda, pose_opt, problems):
+    """Each (name, (T0, pw, uv, ur, inv_sigma2, valid, is_stereo, K, bf,
+    cfg)) problem, batched [B, N]: kernel vs plain version (pose within
+    1e-4, inliers agree on >= 99%, counts within 2, two launches
+    bit-identical); timings; bound."""
+    rows = []
+    for name, args in problems:
+        T0, pw, uv, ur, isig, valid, st, K, bf, cfg = args
+        B, N = valid.shape
         kT, kinl, kn, kc, kit = pose_lm_cuda.pose_lm_cuda(*args)
         kT2, kinl2, _, _, _ = pose_lm_cuda.pose_lm_cuda(*args)
         plain = [pose_opt.pose_optimize_plain(
@@ -289,7 +325,9 @@ def check_pose_lm(pose_lm_cuda, pose_opt, BAConfig):
                          host_us=h_us, plain_ms=p_ms, bound_ms=bound_ms,
                          bound_by="bytes" if bytes_s >= ops_s
                          else "operations"))
-        print(f"  pose_lm {name}: max_abs_err {err:.3e}, inliers agree "
+        print(f"  pose_lm {name} ({int((valid & st).sum())} stereo of "
+              f"{int(valid.sum())} valid rows): max_abs_err {err:.3e}, "
+              f"inliers agree "
               f"{agree:.4f}, n_inliers within {dn}, two launches "
               f"bit-identical {same}; LM iterations {kit.tolist()}; call "
               f"{k_ms:.4f} ms (kernel on the device {_dev(d_ms)}, queued "
@@ -342,69 +380,129 @@ def sweep_clusters(pose_lm_cuda, pose_opt, BAConfig, libs):
     return out
 
 
-def run_slam(SLAM, cfg, seq, stop, start=0, slam=None, **kw):
+def run_slam(SLAM, cfg, seq, stop, start=0, slam=None, right=None, **kw):
+    """Track frames [start, stop) of `seq` through the session's entry
+    point for its sensor (`right`: the right-eye images of a stereo run)."""
     slam = slam or SLAM(cfg, device="cuda", **kw)
     for f in range(start, stop):
-        slam.track_mono(seq.images[f], seq.timestamps[f])
+        if cfg.sensor == 1:
+            slam.track_stereo(seq.images[f], right[f], seq.timestamps[f])
+        elif cfg.sensor == 2:
+            slam.track_rgbd(seq.images[f], seq.depths[f], seq.timestamps[f])
+        else:
+            slam.track_mono(seq.images[f], seq.timestamps[f])
     slam.flush()
     return slam
 
 
-def ate_of(slam, seq, evaluate):
+def ate_of(slam, seq, evaluate, align_scale=True):
     est = slam.poses_twc()
     ie, ig = evaluate.match_timestamps(slam.timestamps(), seq.timestamps)
-    return evaluate.ate_rmse(est[ie], seq.poses_twc[ig], align_scale=True), \
-        len(ie)
+    return evaluate.ate_rmse(est[ie], seq.poses_twc[ig],
+                             align_scale=align_scale), len(ie)
 
 
-def phase_main(SLAM, cfg, seq, evaluate, counters):
+def phase_path(name, SLAM, cfg, seq, evaluate, counters, tracked_min,
+               ate_gate, right=None):
+    """Drive one path through `SLAM` over the whole of `seq` and check it;
+    returns (session, kernel launches in that run).  Monocular runs are
+    scored with scale alignment, stereo and RGB-D ones in metres."""
     fast_cuda, pose_lm_cuda, pose_opt = counters
-    # counts zeroed just before the main path, read just after
-    fast_cuda.launches = pose_lm_cuda.launches = pose_opt.cuda_calls = 0
+    n_frames = len(seq.images)
+    mono = cfg.sensor == 0
+    planes = cfg.orb.n_levels * (2 if cfg.sensor == 1 else 1)
+    # counts zeroed just before the path, read just after
+    fast_cuda.launches = fast_cuda.planes = 0
+    pose_lm_cuda.launches = pose_opt.cuda_calls = 0
     t0 = time.perf_counter()
-    slam = run_slam(SLAM, cfg, seq, N_FRAMES)
+    slam = run_slam(SLAM, cfg, seq, n_frames, right=right)
     wall = time.perf_counter() - t0
     launches = dict(fast_nms=fast_cuda.launches,
                     pose_lm=pose_lm_cuda.launches)
-    calls = pose_opt.cuda_calls
+    calls, fast_planes = pose_opt.cuda_calls, fast_cuda.planes
     check(launches["fast_nms"] == slam.frame_count,
-          f"fast_nms launches {launches['fast_nms']} != one for each of "
-          f"{slam.frame_count} frames")
+          f"{name}: fast_nms launches {launches['fast_nms']} != one for "
+          f"each of {slam.frame_count} frames")
+    check(fast_planes == planes * launches["fast_nms"],
+          f"{name}: fast_nms covered {fast_planes} planes in "
+          f"{launches['fast_nms']} launches, not {planes} each")
     off_card = [f for st in (slam.state, slam.ts) for f, v in
                 zip(st._fields, st) if v.device.type != "cuda"]
-    check(not off_card, f"state tensors off the card: {off_card}")
-    ate, n = ate_of(slam, seq, evaluate)
-    check(n >= TRACKED_MIN_FRAC * N_FRAMES, f"tracked {n}/{N_FRAMES} frames")
-    check(ate <= ATE_GATE_M, f"ATE {ate} m > {ATE_GATE_M} m")
+    check(not off_card, f"{name}: state tensors off the card: {off_card}")
+    ate, n = ate_of(slam, seq, evaluate, align_scale=mono)
+    check(n >= tracked_min * n_frames,
+          f"{name}: tracked {n}/{n_frames} frames")
+    check(ate <= ate_gate, f"{name}: ATE {ate} m > {ate_gate} m")
     kv = slam.state.kf_valid
     bow_ok = bool((slam.state.kf_bow[kv].abs().sum(1) > 0.99).all())
     check(slam.vocab is not None and bow_ok,
-          "a keyframe has no BoW vector (vocabulary on)")
+          f"{name}: a keyframe has no BoW vector (vocabulary on)")
     # frames tracked by the per-frame step: those after the frame that
-    # made the initial map's second keyframe, with a successful trajectory
-    # row; each runs >= 2 pose LMs
+    # made the initial map (its second keyframe for mono, its first for
+    # stereo/RGB-D), with a successful trajectory row; each runs >= 2 pose
+    # LMs
     ok = slam.ts.traj[:slam.frame_count, 15].cpu().numpy() > 0.5
-    stepped = int(ok[int(slam.state.kf_frame_id[1]) + 1:].sum())
+    first = int(slam.state.kf_frame_id[1 if mono else 0])
+    stepped = int(ok[first + 1:].sum())
     check(launches["pose_lm"] == calls,
-          f"pose_lm launches {launches['pose_lm']} != {calls} CUDA "
+          f"{name}: pose_lm launches {launches['pose_lm']} != {calls} CUDA "
           "pose_optimize calls")
     check(launches["pose_lm"] >= 2 * stepped,
-          f"pose_lm launches {launches['pose_lm']} < 2 x {stepped} tracked "
-          "frames")
+          f"{name}: pose_lm launches {launches['pose_lm']} < 2 x {stepped} "
+          "tracked frames")
     times = [t * 1e3 for t in slam.timings[10:]]
     qs = statistics.quantiles(times, n=10)
-    print(f"main path: {N_FRAMES} frames in {wall:.2f} s, steady fps "
+    before = (f" (first slice, vocabulary off: fps {FIRST_SLICE_MAIN[0]}, "
+              f"p50 {FIRST_SLICE_MAIN[1]} p90 {FIRST_SLICE_MAIN[2]} max "
+              f"{FIRST_SLICE_MAIN[3]})") if mono else ""
+    print(f"{name}: {n_frames} frames in {wall:.2f} s, steady fps "
           f"{1e3 / statistics.mean(times):.3f}, frame ms p50 "
           f"{statistics.median(times):.2f} p90 {qs[8]:.2f} max "
-          f"{max(times):.2f} (first slice, vocabulary off: fps "
-          f"{FIRST_SLICE_MAIN[0]}, p50 {FIRST_SLICE_MAIN[1]} p90 "
-          f"{FIRST_SLICE_MAIN[2]} max {FIRST_SLICE_MAIN[3]}); tracked "
-          f"{n}/{N_FRAMES}, keyframes {int(slam.state.n_kf)} (all with BoW), "
-          f"map points {int(slam.state.n_mp)}, ATE {ate:.6f} m; launches "
-          f"fast_nms {launches['fast_nms']}, pose_lm {launches['pose_lm']} "
-          f"({calls} pose_optimize calls, {stepped} frames stepped)",
-          flush=True)
-    return launches
+          f"{max(times):.2f}{before}; tracked {n}/{n_frames}, keyframes "
+          f"{int(slam.state.n_kf)} (all with BoW), map points "
+          f"{int(slam.state.n_mp)}, {'' if mono else 'metric '}ATE "
+          f"{ate:.6f} m; launches fast_nms {launches['fast_nms']} over "
+          f"{fast_planes} planes, pose_lm {launches['pose_lm']} ({calls} "
+          f"pose_optimize calls, {stepped} frames stepped)", flush=True)
+    return slam, launches
+
+
+def phase_depth_path(name, SLAM, cfg, seq, right, evaluate, counters,
+                     mapping, pose_opt):
+    """Phase 9 / 10: a stereo or RGB-D run at the bench's configuration.
+    Also counts the points `create_depth_points` made at each insertion and
+    records every pose LM's problem; returns (launches, the recorded
+    problem with the most stereo rows)."""
+    made, recorded = [], []
+    depth_points, optimize = mapping.create_depth_points, \
+        pose_opt.pose_optimize
+
+    def counted_depth_points(state, kf_id, cfg_):
+        out = depth_points(state, kf_id, cfg_)
+        made.append((kf_id, out.next_mp - state.next_mp))   # no host read
+        return out
+
+    def recording_optimize(*args):
+        recorded.append(args)
+        return optimize(*args)
+
+    mapping.create_depth_points = counted_depth_points
+    pose_opt.pose_optimize = recording_optimize
+    try:
+        slam, launches = phase_path(name, SLAM, cfg, seq, evaluate, counters,
+                                    DEPTH_TRACKED_MIN_FRAC,
+                                    DEPTH_ATE_GATE_M[name.split()[0]], right)
+    finally:
+        mapping.create_depth_points = depth_points
+        pose_opt.pose_optimize = optimize
+    made = [(k, int(m)) for k, m in made]
+    print(f"  {name}: create_depth_points at {len(made)} insertions made "
+          f"{[m for _, m in made]} points", flush=True)
+    check(any(k > 0 and m > 0 for k, m in made),
+          f"{name}: no keyframe after the first made depth points")
+    n_stereo = [int((a[5] & a[6]).sum()) for a in recorded]
+    best = recorded[int(np.argmax(n_stereo))]
+    return slam, launches, best
 
 
 def phase_reloc(SLAM, cfg, synthetic, counters):
@@ -485,6 +583,7 @@ def main() -> int:
         from orb_slam2_tpu_torch.frontend import fast_cuda, pyramid
         from orb_slam2_tpu_torch.frontend.atlas import build_atlas_extractor
         from orb_slam2_tpu_torch.io import evaluate, synthetic
+        from orb_slam2_tpu_torch.pipeline import mapping
         from orb_slam2_tpu_torch.pipeline.system import SLAM
         from orb_slam2_tpu_torch.solvers import pose_lm_cuda, pose_opt
     except ImportError as e:
@@ -505,6 +604,26 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
     print(f"card: {card}", flush=True)
     counters = (fast_cuda, pose_lm_cuda, pose_opt)
+    # the sequences render on the host while the kernels build: the bench's
+    # mono sequence, and its stereo one (bench.py `_run_stereo`) with the
+    # right eye from `right_poses`
+    cfg = config.SLAMConfig()
+    cam = cfg.camera
+    st_cfg = config.SLAMConfig(sensor=config.STEREO,
+                               camera=config.CameraConfig(bf=40.0))
+    rgbd_cfg = st_cfg.replace(sensor=config.RGBD)
+    render = ThreadPoolExecutor(3)
+    seq_f = render.submit(synthetic.generate, cam, n_frames=N_FRAMES,
+                          n_points=500, trajectory="xyz", seed=0)
+    st_seq_f = render.submit(synthetic.generate, st_cfg.camera,
+                             n_frames=STEREO_FRAMES, n_points=500,
+                             trajectory="xyz", seed=0)
+    right_f = render.submit(
+        synthetic.generate, st_cfg.camera, n_frames=STEREO_FRAMES,
+        n_points=4, trajectory="xyz", seed=0,
+        poses_override=synthetic.right_poses(
+            synthetic.xyz_trajectory(STEREO_FRAMES), st_cfg.camera.baseline))
+    render.shutdown(wait=False)
     try:
         # 2. build every kernel at once (one nvcc each): FAST, the pose LM
         # as the source has it, and the pose LM at each cluster size
@@ -518,19 +637,47 @@ def main() -> int:
               flush=True)
 
         # 3. FAST kernel vs plain version, on the main path's atlas, the
-        # small configuration's and a two-image one
-        cfg = config.SLAMConfig()
-        cam = cfg.camera
+        # small configuration's, a two-image one, and the two-image atlas
+        # the stereo path builds from its first frame pair
         level_shapes = lambda h, w: pyramid.level_shapes(
             h, w, cfg.orb.n_levels, cfg.orb.scale_factor)
         main_levels = level_shapes(cam.height, cam.width)
+        t0 = time.perf_counter()
+        seq, st_seq, right = seq_f.result(), st_seq_f.result(), \
+            right_f.result().images
+        print(f"sequences rendered ({time.perf_counter() - t0:.1f} s waited "
+              "after the build)", flush=True)
+        pair = torch.stack([torch.as_tensor(st_seq.images[0]),
+                            torch.as_tensor(right[0])])
+        ext2_gpu = build_atlas_extractor(st_cfg.orb, cam.height, cam.width,
+                                         "cuda", n_images=2,
+                                         return_atlas=True)
+        ext2_cpu = build_atlas_extractor(st_cfg.orb, cam.height, cam.width,
+                                         "cpu", n_images=2,
+                                         return_atlas=True)
+        f2g, pair_atlas = ext2_gpu(pair.cuda())
         rows = check_fast(fast_cuda, [
-            ("main path 640x480", main_levels, 1),
-            ("small configuration 320x240", level_shapes(240, 320), 1),
-            ("two 640x480 images", main_levels, 2)])
+            ("main path 640x480", main_levels, 1, None),
+            ("small configuration 320x240", level_shapes(240, 320), 1, None),
+            ("two 640x480 images", main_levels, 2, None),
+            ("stereo pair 640x480", main_levels, 2, pair_atlas)])
         check(all(r["exact"] for r in rows),
               "fast_nms kernel disagrees with its plain version")
         frame_row = rows[0]
+        f2c, pair_atlas_cpu = ext2_cpu(pair)
+        agree = []
+        for b in range(2):
+            same = ((f2g.valid[b].cpu() == f2c.valid[b]) &
+                    (f2g.octave[b].cpu() == f2c.octave[b]) &
+                    ((f2g.uv[b].cpu() - f2c.uv[b]).abs().amax(-1) <= 1e-3))
+            agree.append(float(same.float().mean()))
+        atlas_err = float((pair_atlas.cpu() - pair_atlas_cpu).abs().max())
+        print(f"two-image extractor card vs CPU on the stereo pair: "
+              f"{agree[0]:.4f} / {agree[1]:.4f} of 2 x {f2c.valid.shape[1]} "
+              f"slots agree (left / right), atlas max_abs_err {atlas_err}",
+              flush=True)
+        check(min(agree) >= 0.99 and atlas_err <= 1e-3,
+              "two-image extractor on the card disagrees with the CPU run")
         print(f"fast_nms, one frame's 8 levels in one launch: call "
               f"{frame_row['ms']:.4f} ms, kernel on the device "
               f"{_dev(frame_row['device_ms'])} (queued "
@@ -538,8 +685,6 @@ def main() -> int:
               f"{frame_row['bound_ms']:.5f} ms ({frame_row['bound_by']}); "
               f"second slice, 8 launches: calls {SECOND_SLICE_FAST[1]} ms, "
               f"kernels on the device {SECOND_SLICE_FAST[0]} ms", flush=True)
-        seq = synthetic.generate(cam, n_frames=N_FRAMES, n_points=500,
-                                 trajectory="xyz", seed=0)
         ext_gpu = build_atlas_extractor(cfg.orb, cam.height, cam.width,
                                         "cuda")
         ext_cpu = build_atlas_extractor(cfg.orb, cam.height, cam.width, "cpu")
@@ -566,7 +711,9 @@ def main() -> int:
                        {c: pose_lm_cuda.load(c) for c in CLUSTERS})
 
         # 5. main path, vocabulary on
-        launches = phase_main(SLAM, cfg, seq, evaluate, counters)
+        launches = {"mono": phase_path("main path", SLAM, cfg, seq, evaluate,
+                                       counters, TRACKED_MIN_FRAC,
+                                       ATE_GATE_M)[1]}
 
         # 6. relocalisation, 7. loop closing
         phase_reloc(SLAM, cfg, synthetic, counters)
@@ -579,14 +726,42 @@ def main() -> int:
               "two identical runs gave different trajectories")
         print(f"determinism: two {DET_FRAMES}-frame runs bit-identical "
               f"({a.shape[0]} poses)", flush=True)
+        a = run_slam(SLAM, st_cfg, st_seq, DET_FRAMES, right=right
+                     ).poses_twc()
+        b = run_slam(SLAM, st_cfg, st_seq, DET_FRAMES, right=right
+                     ).poses_twc()
+        check(a.shape == b.shape and (a == b).all(),
+              "two identical stereo runs gave different trajectories")
+        print(f"determinism: two {DET_FRAMES}-frame stereo runs "
+              f"bit-identical ({a.shape[0]} poses)", flush=True)
+
+        # 9. stereo main path, 10. RGB-D main path
+        _, launches["stereo"], st_problem = phase_depth_path(
+            "stereo main path", SLAM, st_cfg, st_seq, right, evaluate,
+            counters, mapping, pose_opt)
+        _, launches["rgbd"], _ = phase_depth_path(
+            "rgbd main path", SLAM, rgbd_cfg, st_seq, None, evaluate,
+            counters, mapping, pose_opt)
+
+        # 4 (continued). the pose LM on a problem of the stereo run
+        pose_rows += check_pose_problems(pose_lm_cuda, pose_opt, [(
+            "stereo frame of phase 9",
+            tuple(a[None] for a in st_problem[:7]) + tuple(st_problem[7:]))])
     except PhaseError as e:
         return fail(str(e))
+
+    total = {k: sum(v[k] for v in launches.values())
+             for k in ("fast_nms", "pose_lm")}
+    by_path = lambda k: {p: v[k] for p, v in launches.items()}
 
     kernels = [{
         "name": "fast_nms", "route": "cuda",
         "source": "orb_slam2_tpu_torch/csrc/fast_nms.cu",
         "replaces": "orb_slam2_tpu/frontend/pallas_fast.py:42",
-        "launches": launches["fast_nms"],
+        # over the mono, stereo and RGB-D main paths (each counted from 0
+        # just before its run), and per path
+        "launches": total["fast_nms"],
+        "launches_by_path": by_path("fast_nms"),
         "max_abs_err": max(r["err"] for r in rows),
         # one frame: the main path's atlas of 8 levels, one launch
         "ms": frame_row["ms"],
@@ -598,7 +773,8 @@ def main() -> int:
         "name": "pose_lm", "route": "cuda",
         "source": "orb_slam2_tpu_torch/csrc/pose_lm.cu",
         "replaces": "scripts/study_pallas_pose.py:148",
-        "launches": launches["pose_lm"],
+        "launches": total["pose_lm"],
+        "launches_by_path": by_path("pose_lm"),
         "max_abs_err": max(r["err"] for r in pose_rows),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],

@@ -1,5 +1,5 @@
 """Pinhole camera model (port of orb_slam2_tpu/core/camera.py, the subset
-the monocular path uses).
+the monocular, stereo and RGB-D paths use).
 
 Intrinsics are packed ``K = [fx, fy, cx, cy]`` and distortion
 ``dist = [k1, k2, p1, p2, k3]``; functions take any leading batch dims.
@@ -30,6 +30,15 @@ def project(K: torch.Tensor, p_cam: torch.Tensor) -> torch.Tensor:
     return xy * K[..., :2] + K[..., 2:4]
 
 
+def unproject(K: torch.Tensor, uv: torch.Tensor,
+              depth: torch.Tensor) -> torch.Tensor:
+    """Pixels [..., 2] + depth [...] -> camera-frame points [..., 3]
+    (reference Frame::UnprojectStereo)."""
+    xy = (uv - K[..., 2:4]) / K[..., :2]
+    d = depth[..., None]
+    return torch.cat([xy * d, d], dim=-1)
+
+
 def distort_normalized(dist: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     """Apply radial-tangential distortion to normalized coords [..., 2]."""
     k1, k2, p1, p2, k3 = dist[0], dist[1], dist[2], dist[3], dist[4]
@@ -51,6 +60,14 @@ def undistort_points(K: torch.Tensor, dist: torch.Tensor, uv: torch.Tensor,
         d = distort_normalized(dist, xy)
         xy = xy_d - (d - xy)
     return xy * K[..., :2] + K[..., 2:4]
+
+
+def stereo_right_u(K: torch.Tensor, bf: float, uv: torch.Tensor,
+                   depth: torch.Tensor) -> torch.Tensor:
+    """Virtual right-image u coordinate uR = u - bf/z (reference
+    Frame::ComputeStereoFromRGBD)."""
+    z = torch.clamp(depth, min=1e-9)
+    return uv[..., 0] - bf / z
 
 
 def in_image(uv: torch.Tensor, bounds) -> torch.Tensor:

@@ -1,19 +1,27 @@
-"""Where a monocular frame's time goes on the card.
+"""Where a frame's time goes on the card.
 
-    python3 -m orb_slam2_tpu_torch.frame_profile [--frames 80] [--window 20]
-                                                  [--out PATH]
+    python3 -m orb_slam2_tpu_torch.frame_profile [--sensor mono|stereo|rgbd]
+        [--frames 80] [--window 20] [--out PATH]
 
-Runs `SLAM` at the default configuration (640x480, 1000 features) on the
-bench sequence (xyz trajectory, 500 points, seed 0) on CUDA, and reports:
+Runs `SLAM` on CUDA at the bench's configuration for the sensor (mono: the
+default SLAMConfig, 640x480, 1000 features; stereo and RGB-D: the same with
+bf = 40, as bench.py `_run_stereo`) on the bench sequence (xyz trajectory,
+500 points, seed 0; the right eye rendered from `right_poses`, the depth
+maps the renderer's), and reports:
 
 * over one window of `--window` frames, host wall time per phase of the
-  per-frame step (extraction, tracking, keyframe insertion, each
-  keyframe-integration stage), each phase timed between two
-  `torch.cuda.synchronize()` calls, so a phase's number includes its
-  device work;
+  per-frame step (`frame`: the whole frame construction, of which `orb` is
+  the ORB extraction and, for stereo, `stereo_sad` the SAD refinement;
+  tracking; keyframe insertion, of which `depth_points` is
+  `create_depth_points` for stereo/RGB-D; each keyframe-integration
+  stage), each phase timed between two `torch.cuda.synchronize()` calls,
+  so a phase's number includes its device work;
 * over the next window, a `torch.profiler` trace: device time by kernel
   and kernel launches per frame; the device's idle share is one minus that
-  device time over the first window's wall time.
+  device time over the first window's wall time;
+* every phase call of the warm-up frames before the windows, each: a
+  stereo or RGB-D session makes its keyframes early, so its insertions and
+  integration stages may fall there.
 
 The phases are timed by wrapping the step's building blocks, so the
 session runs its own code unchanged.  Prints one JSON object as its last
@@ -26,6 +34,7 @@ import argparse
 import json
 import os
 import statistics
+import subprocess
 import time
 from collections import defaultdict
 
@@ -34,10 +43,12 @@ import torch
 from orb_slam2_tpu_torch import config
 from orb_slam2_tpu_torch.io import synthetic
 from orb_slam2_tpu_torch.pipeline import frame as frame_mod
-from orb_slam2_tpu_torch.pipeline import system, tracking
+from orb_slam2_tpu_torch.pipeline import mapping, system, tracking
 
 STAGE_NAMES = ["triangulate", "fuse", "local_ba", "local_ba", "local_ba",
                "cull"]
+SENSORS = {"mono": config.MONOCULAR, "stereo": config.STEREO,
+           "rgbd": config.RGBD}
 
 
 def _timed(name, fn, clock):
@@ -53,14 +64,23 @@ def _timed(name, fn, clock):
 
 
 def _instrument(clock):
-    """Wrap the per-frame step's building blocks with phase timers."""
-    build_frame = frame_mod.build_mono_frame_fn
+    """Wrap the per-frame step's building blocks with phase timers (the
+    nested ones, `orb` and `stereo_sad` in `frame`, `depth_points` in
+    `insert_kf`, are also counted in their parent)."""
+    build_frame = system.build_frame_fn
+    build_extractor = frame_mod.build_extractor
     build_track = tracking.build_track_step
-    frame_mod.build_mono_frame_fn = lambda cfg, device=None: _timed(
-        "extract", build_frame(cfg, device), clock)
+    system.build_frame_fn = lambda cfg, device=None: _timed(
+        "frame", build_frame(cfg, device), clock)
+    frame_mod.build_extractor = lambda *a, **kw: _timed(
+        "orb", build_extractor(*a, **kw), clock)
+    frame_mod._sad_subpixel_atlas = _timed(
+        "stereo_sad", frame_mod._sad_subpixel_atlas, clock)
     tracking.build_track_step = lambda cfg: _timed(
         "track", build_track(cfg), clock)
     system.insert_kf = _timed("insert_kf", system.insert_kf, clock)
+    mapping.create_depth_points = _timed(
+        "depth_points", mapping.create_depth_points, clock)
     stage_of = lambda state, ts, cfg: "map_" + STAGE_NAMES[
         min(int(ts.map_stage), len(STAGE_NAMES) - 1)]
     system.mapping_stage = _timed(stage_of, system.mapping_stage, clock)
@@ -75,6 +95,7 @@ def _device_time_us(evt) -> float:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--sensor", choices=list(SENSORS), default="mono")
     ap.add_argument("--frames", type=int, default=80)
     ap.add_argument("--window", type=int, default=20)
     ap.add_argument("--out", default=None)
@@ -82,26 +103,44 @@ def main(argv=None) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("frame_profile needs a CUDA card")
 
-    cfg = config.SLAMConfig()
+    sensor = SENSORS[args.sensor]
+    cfg = config.SLAMConfig() if sensor == config.MONOCULAR else \
+        config.SLAMConfig(sensor=sensor, camera=config.CameraConfig(bf=40.0))
     seq = synthetic.generate(cfg.camera, n_frames=args.frames, n_points=500,
                              trajectory="xyz", seed=0)
+    if sensor == config.STEREO:
+        second = synthetic.generate(
+            cfg.camera, n_frames=args.frames, n_points=4, trajectory="xyz",
+            seed=0, poses_override=synthetic.right_poses(
+                seq.poses_twc, cfg.camera.baseline)).images
+    else:
+        second = seq.depths
     clock = defaultdict(list)
     _instrument(clock)
     slam = system.SLAM(cfg, device="cuda")
+    track = {config.MONOCULAR: lambda f: slam.track_mono(
+                 seq.images[f], seq.timestamps[f]),
+             config.STEREO: lambda f: slam.track_stereo(
+                 seq.images[f], second[f], seq.timestamps[f]),
+             config.RGBD: lambda f: slam.track_rgbd(
+                 seq.images[f], second[f], seq.timestamps[f])}[sensor]
     n = args.window
     warm = args.frames - 2 * n
     if warm < 10:
         raise SystemExit("--frames must leave 10 warm-up frames before the "
                          "two windows")
     for f in range(warm):
-        slam.track_mono(seq.images[f], seq.timestamps[f])
+        track(f)
 
     # window 1: phase timers only
     torch.cuda.synchronize()
+    # every timed call of the warm-up frames, kept: a stereo or RGB-D run
+    # makes its keyframes (and their integration stages) early
+    warm_calls = {k: [t * 1e3 for t in v] for k, v in clock.items()}
     clock.clear()
     t0 = time.perf_counter()
     for f in range(warm, warm + n):
-        slam.track_mono(seq.images[f], seq.timestamps[f])
+        track(f)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     phases = {k: list(v) for k, v in clock.items()}
@@ -112,7 +151,7 @@ def main(argv=None) -> dict:
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=acts) as prof:
         for f in range(warm + n, warm + 2 * n):
-            slam.track_mono(seq.images[f], seq.timestamps[f])
+            track(f)
         torch.cuda.synchronize()
     prof_wall_s = time.perf_counter() - t0
 
@@ -122,8 +161,15 @@ def main(argv=None) -> dict:
     launches = sum(e.count for e in kernels)
     top = sorted(kernels, key=_device_time_us, reverse=True)[:12]
     dev_ms = dev_us / 1e3 / n
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
     out = {
         "device": torch.cuda.get_device_name(0),
+        # the card's name and power limit, as nvidia-smi gives them
+        "card": smi.stdout.strip().splitlines()[0] if smi.returncode == 0
+        else None,
+        "sensor": args.sensor,
         "frames_per_window": n,
         # window 1: phase timers (two synchronisations per phase)
         "wall_ms_per_frame": wall_s * 1e3 / n,
@@ -131,6 +177,9 @@ def main(argv=None) -> dict:
         "phase_calls": {k: len(v) for k, v in phases.items()},
         "phase_ms_median_per_call": {k: statistics.median(v) * 1e3
                                      for k, v in phases.items()},
+        # the warm-up frames' calls, each (its first calls include
+        # first-use costs)
+        "warmup_phase_ms_each_call": warm_calls,
         # window 2: the profiler
         "profiled_wall_ms_per_frame": prof_wall_s * 1e3 / n,
         "device_ms_per_frame": dev_ms,

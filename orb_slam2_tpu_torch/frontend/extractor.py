@@ -1,5 +1,5 @@
 """Fixed-capacity keypoint sets and the extractor entry point (port of
-orb_slam2_tpu/frontend/extractor.py, the parts the mono path uses)."""
+orb_slam2_tpu/frontend/extractor.py, the parts the atlas path uses)."""
 
 from __future__ import annotations
 
@@ -34,9 +34,13 @@ def per_level_quota(n_features: int, n_levels: int, scale: float) -> List[int]:
     return quotas
 
 
-def build_extractor(cfg: ORBConfig, height: int, width: int, device=None):
+def build_extractor(cfg: ORBConfig, height: int, width: int, device=None,
+                    n_images: int = 1, return_atlas: bool = False):
     """Return `extract(img [H, W] f32) -> Features` for a fixed image size
     (the level-atlas formulation, frontend/atlas.py), on `device`: CUDA
-    unless the caller names one (raises without a card)."""
+    unless the caller names one (raises without a card).  `n_images=2`
+    batches a stereo pair ([2, H, W] -> Features [2, cap]);
+    `return_atlas=True` also returns the raw level atlas."""
     from orb_slam2_tpu_torch.frontend.atlas import build_atlas_extractor
-    return build_atlas_extractor(cfg, height, width, device=device)
+    return build_atlas_extractor(cfg, height, width, device=device,
+                                 n_images=n_images, return_atlas=return_atlas)

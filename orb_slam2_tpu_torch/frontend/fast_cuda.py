@@ -12,7 +12,7 @@ same function in tensor ops.  There is no fallback from one to the other:
 a CUDA tensor that the kernel cannot take raises.
 
 `launches` counts the kernel's launches, so a run can show that its main
-path went through the kernel.
+path went through the kernel, and `planes` the atlas planes they covered.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from orb_slam2_tpu_torch.frontend import fast
 SOURCE = cuda_build.source("fast_nms.cu")
 
 launches = 0
+planes = 0
 _lib = None
 
 
@@ -87,7 +88,7 @@ def _load():
 def fast_nms_atlas_cuda(atlas: torch.Tensor,
                         shapes: Sequence[Tuple[int, int]]):
     """One kernel launch over a CUDA [G, Hp, Wp] f32 atlas; (nms, raw)."""
-    global launches
+    global launches, planes
     if not atlas.is_cuda:
         raise ValueError(f"expected a CUDA atlas, got one on {atlas.device}")
     _check(atlas, shapes)
@@ -106,6 +107,7 @@ def fast_nms_atlas_cuda(atlas: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"fast_nms kernel launch failed: cudaError {err}")
     launches += 1
+    planes += G
     return nms, raw
 
 

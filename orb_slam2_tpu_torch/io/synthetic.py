@@ -1,5 +1,6 @@
 """Synthetic sequence generator with exact ground truth (a numpy-only copy
-of orb_slam2_tpu/io/synthetic.py, mono trajectories).
+of orb_slam2_tpu/io/synthetic.py: the xyz and loop trajectories, and the
+right eye of a rectified stereo rig through `right_poses`).
 
 The JAX package renders with OpenCV (cubic resize, Gaussian blur, bilinear
 remap with wrap-around).  This copy implements those three operations in
@@ -152,16 +153,35 @@ def _plane_texture(rng, th: int, tw: int) -> np.ndarray:
     return (tex - t0) / max(t1 - t0, 1e-6) * 195.0 + 30.0
 
 
+def right_poses(twc: np.ndarray, baseline: float) -> np.ndarray:
+    """Right-eye Twc for a rectified stereo rig: same rotation, position
+    shifted by +baseline along the camera x-axis."""
+    out = twc.copy()
+    for i in range(len(twc)):
+        out[i, 4:] = twc[i, 4:] + _quat_rot(twc[i, :4],
+                                            np.array([baseline, 0.0, 0.0]))
+    return out
+
+
 def generate(cam: CameraConfig, n_frames: int = 120, n_points: int = 600,
              trajectory: str = "xyz", seed: int = 0,
              depth_range=(2.0, 8.0), noise_sigma: float = 1.0,
+             poses_override: np.ndarray = None,
              loop_revolutions: float = 1.0) -> SyntheticSequence:
     """Render a textured room (5 planes, ray-cast with a z-buffer) along a
-    smooth camera trajectory, with exact ground-truth poses."""
+    smooth camera trajectory, with exact ground-truth poses.
+    `poses_override` [n_frames, 7] (Twc) replaces the trajectory: with
+    `right_poses` of a sequence's poses and the same seed it renders that
+    sequence's right eye (the same room, texture and noise draws)."""
     rng = np.random.RandomState(seed)
     H, W = cam.height, cam.width
     fx, fy, cx, cy = cam.fx, cam.fy, cam.cx, cam.cy
-    if trajectory == "xyz":
+    if poses_override is not None:
+        twc = np.asarray(poses_override)
+        if twc.shape != (n_frames, 7):
+            raise ValueError(f"poses_override has shape {twc.shape}, not "
+                             f"({n_frames}, 7)")
+    elif trajectory == "xyz":
         twc = xyz_trajectory(n_frames)
     elif trajectory == "loop":
         twc = loop_trajectory(n_frames, revolutions=loop_revolutions)

@@ -1,7 +1,7 @@
-"""Local mapping at keyframe rate: new-point triangulation, point fusion,
-point and keyframe culling (port of orb_slam2_tpu/pipeline/mapping.py, the
-monocular subset; reference LocalMapping.cc run deterministically after a
-keyframe insertion).
+"""Local mapping at keyframe rate: new-point triangulation, depth points of
+a stereo/RGB-D keyframe, point fusion, point and keyframe culling (port of
+orb_slam2_tpu/pipeline/mapping.py; reference LocalMapping.cc run
+deterministically after a keyframe insertion).
 
 Where the JAX code `vmap`s over neighbour keyframes, this port loops over
 them on the host; neighbour slots that are -1 (fewer covisible keyframes
@@ -71,7 +71,9 @@ def triangulate_new_points(state: MapState, kf_id: int, cfg: SLAMConfig,
     sf = cfg.orb.scale_factor
     N = state.kf_obs.shape[1]
     if n_neighbors is None:
-        n_neighbors = cfg.mapping.triangulate_neighbors
+        # 20 mono / 10 stereo-RGBD best covisible KFs (LocalMapping.cc:217)
+        n_neighbors = (cfg.mapping.triangulate_neighbors if cfg.sensor == 0
+                       else cfg.mapping.triangulate_neighbors_stereo)
     neighbors = covisible_neighbors(state, kf_id, n_neighbors, min_weight=15)
     T1 = state.kf_pose[kf_id]
     c1 = _camera_center(T1)
@@ -161,6 +163,37 @@ def triangulate_new_points(state: MapState, kf_id: int, cfg: SLAMConfig,
     return update_covisibility_for_kf(state, kf_id)
 
 
+def create_depth_points(state: MapState, kf_id: int,
+                        cfg: SLAMConfig) -> MapState:
+    """Stereo/RGB-D: map points for the new keyframe's untracked keypoints
+    with depth, every close one and the nearest far ones until
+    `close_depth_n` (reference Tracking::CreateNewKeyFrame,
+    Tracking.cc:1078-1136)."""
+    dev = state.kf_pose.device
+    K = camera.intrinsics(cfg.camera, dev)
+    N = state.kf_obs.shape[1]
+    depth = state.kf_depth[kf_id]
+    free = state.kf_kp_valid[kf_id] & (state.kf_obs[kf_id] < 0)
+    th_depth = cfg.camera.th_depth * cfg.camera.baseline \
+        if cfg.camera.bf > 0 else float("inf")
+    has = free & (depth > 0)
+    # depth rank among the candidates; stable, so the inf-padded rest keeps
+    # index order as in jnp.argsort
+    order = torch.argsort(torch.where(has, depth, float("inf")), stable=True)
+    rank = torch.argsort(order, stable=True)
+    want = has & ((depth < th_depth) | (rank < cfg.tracking.close_depth_n))
+    T = state.kf_pose[kf_id]
+    pc = camera.unproject(K, state.kf_uv[kf_id], depth)
+    pw = lie.se3_apply(lie.se3_inverse(T), pc)
+    state, pids = ops.alloc_points(state, want, pw, state.kf_desc[kf_id],
+                                   kf_id)
+    state = ops.add_obs(state, kf_id, torch.arange(N, device=dev), pids)
+    state = ops.update_point_attributes(
+        state, pids_mask_from(pids, state.mp_pos.shape[0]),
+        cfg.orb.scale_factor, cfg.orb.n_levels)
+    return update_covisibility_for_kf(state, kf_id)
+
+
 def cull_points(state: MapState, kf_id: int, cfg: SLAMConfig) -> MapState:
     """Recent-point culling (reference LocalMapping::MapPointCulling): found
     ratio < 0.25, or too few observations two keyframes after creation;
@@ -226,14 +259,20 @@ def cull_keyframe(state: MapState, ts, c: int, cfg: SLAMConfig):
 def cull_redundant_keyframes(state: MapState, ts, kf_id: int,
                              cfg: SLAMConfig, n_candidates: int = 10):
     """Reference LocalMapping::KeyFrameCulling: a covisible keyframe is
-    redundant if >90% of its points are seen by >= 3 other keyframes at the
-    same or finer scale; the most redundant one is culled.  Returns
+    redundant if >90% of its points (its close points for stereo/RGB-D) are
+    seen by >= 3 other keyframes at the same or finer scale; the most
+    redundant one is culled.  Returns
     (state, ts)."""
     th_obs = cfg.mapping.kf_cull_th_obs
     cands = covisible_neighbors(state, kf_id, n_candidates, min_weight=15)
     csafe = cands.clamp(min=0)
     pids = state.kf_obs[csafe]                               # [C, N]
     valid = pids >= 0
+    if cfg.sensor != 0:
+        # only close stereo points count (LocalMapping.cc:657-661)
+        d = state.kf_depth[csafe]
+        valid = valid & (d > 0) & \
+            (d < cfg.camera.th_depth * cfg.camera.baseline)
     safe = pids.long().clamp(min=0)
     okf = state.mp_obs_kf[safe].long()                       # [C, N, D]
     okp = state.mp_obs_kp[safe].long()

@@ -1,8 +1,9 @@
-"""Monocular SLAM session (port of orb_slam2_tpu/pipeline/system.py, the
-monocular path).
+"""SLAM session for a monocular, stereo or RGB-D camera (port of
+orb_slam2_tpu/pipeline/system.py, one frame per step).
 
-Per frame: build the frame, track, decide on a keyframe, insert it (with
-its BoW vector when a vocabulary is loaded), and advance the pending
+Per frame: build the frame (the sensor's frame function), track, decide
+on a keyframe, insert it (with its depth points for stereo/RGB-D and its
+BoW vector when a vocabulary is loaded), and advance the pending
 keyframe's integration by one stage (triangulate, fuse, 3 local-BA chunks,
 cull) — the deterministic form of the reference's LocalMapping thread.  The
 host reads a few scalars per frame (the keyframe decision, the integration
@@ -30,7 +31,7 @@ import torch
 from orb_slam2_tpu_torch import resolve_device
 from orb_slam2_tpu_torch.ba import local as ba_local
 from orb_slam2_tpu_torch.ba.async_gba import AsyncGBA
-from orb_slam2_tpu_torch.config import MONOCULAR, SLAMConfig
+from orb_slam2_tpu_torch.config import MONOCULAR, RGBD, STEREO, SLAMConfig
 from orb_slam2_tpu_torch.core import lie
 from orb_slam2_tpu_torch.map import ops
 from orb_slam2_tpu_torch.map.state import MapState, empty_map
@@ -64,8 +65,11 @@ def n_stages(cfg: SLAMConfig) -> int:
 
 def insert_kf(state: MapState, ts: TrackState, frame, cur_pids,
               cfg: SLAMConfig):
-    """Insert the tracked frame as a keyframe and arm its integration."""
+    """Insert the tracked frame as a keyframe (with its depth points for
+    stereo/RGB-D) and arm its integration."""
     state, kf_id = ops.insert_keyframe(state, frame, ts.T, cur_pids)
+    if cfg.sensor != MONOCULAR:
+        state = mapping.create_depth_points(state, kf_id, cfg)
     dev = ts.T.device
     i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
     ts = ts._replace(ref_kf=i32(kf_id), last_kf_frame_id=frame.frame_id,
@@ -100,21 +104,35 @@ def mapping_stage(state: MapState, ts: TrackState, cfg: SLAMConfig):
     return state, ts
 
 
-def build_full_step(cfg: SLAMConfig, device=None, transform=None):
+def build_frame_fn(cfg: SLAMConfig, device=None):
+    """The sensor's frame function, (*images, frame_id, timestamp) ->
+    Frame: (image) mono, (image, depth map) RGB-D, (left, right) stereo."""
+    if cfg.sensor == MONOCULAR:
+        return frame_mod.build_mono_frame_fn(cfg, device)
+    if cfg.sensor == RGBD:
+        return frame_mod.build_rgbd_frame_fn(cfg, device)
+    if cfg.sensor == STEREO:
+        return frame_mod.build_stereo_frame_fn(cfg, device)
+    raise ValueError(f"unknown sensor {cfg.sensor}")
+
+
+def build_full_step(cfg: SLAMConfig, device=None, transform=None,
+                    frame_fn=None):
     """Returns the per-frame step
 
-        (state, ts, img, frame_id, timestamp) -> (state, ts, frame, hud [6])
+        (state, ts, imgs, frame_id, timestamp) -> (state, ts, frame, hud [6])
 
-    extraction -> tracking -> keyframe decision -> conditional insertion
-    (with the keyframe's BoW vector when `transform`, the vocabulary
-    transform, is given) -> one integration stage (JAX `full_step`,
-    system.py:203-232).  Runs on `device`: CUDA unless the caller names
-    one."""
-    frame_fn = frame_mod.build_mono_frame_fn(cfg, device)
+    with `imgs` the tuple of the sensor's images: frame construction
+    (`frame_fn`, by default the sensor's) -> tracking -> keyframe decision
+    -> conditional insertion (with the keyframe's BoW vector when
+    `transform`, the vocabulary transform, is given) -> one integration
+    stage (JAX `full_step`, system.py:203-232).  Runs on `device`: CUDA
+    unless the caller names one."""
+    frame_fn = frame_fn or build_frame_fn(cfg, device)
     track_step = tracking.build_track_step(cfg)
 
-    def full_step(state, ts, img, frame_id, timestamp):
-        frame = frame_fn(img, frame_id, timestamp)
+    def full_step(state, ts, imgs, frame_id, timestamp):
+        frame = frame_fn(*imgs, frame_id, timestamp)
         state, ts, cur_pids, hud = track_step(state, ts, frame)
         # while the previous KF's triangulation/fusion stages are pending,
         # defer; once only BA/cull stages remain, a new insertion aborts
@@ -137,19 +155,20 @@ def build_full_step(cfg: SLAMConfig, device=None, transform=None):
 
 
 class SLAM:
-    """One monocular SLAM session.  Usage:
+    """One SLAM session; `cfg.sensor` picks the camera.  Usage:
 
         slam = SLAM(cfg)                    # CUDA; device="cpu" to opt out
         for img, t in sequence:
-            slam.track_mono(img, t)
-        slam.save_trajectory_tum("traj.txt")
+            slam.track_mono(img, t)         # or track_stereo(left, right, t)
+        slam.save_trajectory_tum("traj.txt")    # or track_rgbd(img, depth, t)
     """
 
     def __init__(self, cfg: SLAMConfig, device=None, seed: int = 0,
                  vocab_path: Optional[str] = None,
                  enable_loop_closing: bool = True):
-        if cfg.sensor != MONOCULAR:
-            raise NotImplementedError("this port runs the monocular path")
+        if cfg.frame_batch > 1:
+            raise NotImplementedError("this port steps one frame at a time "
+                                      "(frame_batch = 1)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.state = empty_map(cfg, self.device)
@@ -180,20 +199,38 @@ class SLAM:
             self._consistency = loopclosing.ConsistencyTracker(
                 cfg.loop.covisibility_consistency_th)
         self._gba = AsyncGBA(cfg)
-        self._frame_fn = frame_mod.build_mono_frame_fn(cfg, self.device)
-        self._full_step = build_full_step(cfg, self.device, self._transform)
+        self._frame_fn = build_frame_fn(cfg, self.device)
+        self._full_step = build_full_step(cfg, self.device, self._transform,
+                                          self._frame_fn)
 
     # ------------------------------------------------------------------
     def track_mono(self, img: np.ndarray, timestamp: float):
+        self._track(MONOCULAR, (img,), timestamp)
+
+    def track_rgbd(self, img: np.ndarray, depth: np.ndarray,
+                   timestamp: float):
+        """`depth`: the registered depth map in metres (0 = none)."""
+        self._track(RGBD, (img, depth), timestamp)
+
+    def track_stereo(self, img_l: np.ndarray, img_r: np.ndarray,
+                     timestamp: float):
+        """A rectified pair."""
+        self._track(STEREO, (img_l, img_r), timestamp)
+
+    def _track(self, sensor: int, imgs, timestamp: float):
+        if sensor != self.cfg.sensor:
+            raise ValueError(f"a sensor-{sensor} frame given to a session "
+                             f"configured for sensor {self.cfg.sensor}")
         t0 = time.perf_counter()
-        img = torch.as_tensor(np.asarray(img, np.float32), device=self.device)
+        imgs = tuple(torch.as_tensor(np.asarray(a, np.float32),
+                                     device=self.device) for a in imgs)
         if self.status == NOT_INITIALIZED:
-            frame = self._frame_fn(img, self.frame_count, timestamp)
+            frame = self._frame_fn(*imgs, self.frame_count, timestamp)
             self._initialize(frame)
             self.frame_count += 1
         else:
             self.state, self.ts, frame, hud = self._full_step(
-                self.state, self.ts, img, self.frame_count, timestamp)
+                self.state, self.ts, imgs, self.frame_count, timestamp)
             self._pending.append((self.frame_count, hud.cpu().numpy(), frame))
             self.frame_count += 1
             self._drain(self.hud_lag)
@@ -335,6 +372,18 @@ class SLAM:
     # ------------------------------------------------------------------
     def _initialize(self, frame):
         cfg = self.cfg
+        if cfg.sensor != MONOCULAR:
+            # one frame with enough keypoints with depth (Tracking.cc:509)
+            if int(frame.n) >= cfg.tracking.stereo_init_min_kps:
+                self.state, self.ts, _ = init_mod.stereo_initialize(
+                    self.state, self.ts, frame, cfg)
+                self.ts = record_traj(self.state, self.ts, frame, True)
+                if self._transform is not None:
+                    self.state = set_bow(self.state, self.ts.ref_kf.long(),
+                                         self._transform(frame.desc,
+                                                         frame.valid)[0])
+                self.status = OK
+            return
         if not bool(self.ts.init_valid_frame):
             self.ts = init_mod.store_init_frame(self.ts, frame)
             return

@@ -176,7 +176,9 @@ def track_with_motion_model(state: MapState, ts: TrackState, frame: Frame,
                             cfg: SLAMConfig):
     """Reference Tracking::TrackWithMotionModel: constant-velocity
     prediction, project last frame's points, windowed search, pose
-    optimization.  Returns (cur_pids [N], pose-opt result, ok)."""
+    optimization.  Returns (cur_pids [N], pose-opt result, ok).  The JAX
+    version's temporal "VO points" of a depth sensor join only in
+    localization mode, which this port does not have yet."""
     dev = frame.uv.device
     K = camera.intrinsics(cfg.camera, dev)
     bf = cfg.camera.bf
@@ -380,8 +382,25 @@ def build_track_step(cfg: SLAMConfig):
         c1a = frames_since >= cfg.tracking.max_frames_hint
         gap_ok = frames_since >= cfg.tracking.min_kf_gap
         room = state.next_kf < state.kf_valid.shape[0] - 2
-        c2 = (n_inliers < n_ref * th_ratio) & (n_inliers > 15)
-        need_kf = ok & room & (c1a | (c2 & gap_ok))
+        if cfg.sensor != 0:
+            # close-point conditions c1b/c1c (Tracking.cc:1002-1037): too
+            # few close points tracked while enough close candidates exist
+            thd = cfg.camera.th_depth * cfg.camera.baseline
+            close = frame.valid & (frame.depth > 0) & (frame.depth < thd)
+            n_tc = torch.sum((close & (cur_pids >= 0)).to(torch.int32))
+            n_ntc = torch.sum((close & (cur_pids < 0)).to(torch.int32))
+            need_close = (n_tc < cfg.tracking.close_depth_n) & \
+                (n_ntc > cfg.tracking.close_trackable_min)
+            # c1b: MinFrames passed + mapping idle (Tracking.cc:1031), the
+            # min_kf_gap throttle standing in for the idle flag
+            c1b = gap_ok
+            c1c = (n_inliers < n_ref * 0.25) | need_close
+            c2 = ((n_inliers < n_ref * th_ratio) | need_close) & \
+                (n_inliers > 15)
+            need_kf = ok & room & ((c1a | c1b | c1c) & c2)
+        else:
+            c2 = (n_inliers < n_ref * th_ratio) & (n_inliers > 15)
+            need_kf = ok & room & (c1a | (c2 & gap_ok))
 
         new_ts = record_traj(state, new_ts, frame, ok)
         hud = torch.stack([torch.where(ok, OK, LOST).to(torch.int32),

@@ -1,7 +1,8 @@
 """Tests of the port that need a CUDA card: the hand-written kernels
 against their plain PyTorch versions on the card — FAST-9+NMS over a level
-atlas bit-exact, the pose LM within 1e-4 with the same inliers, two
-launches bit-identical.
+atlas bit-exact, the pose LM within 1e-4 with the same inliers (also with
+every row stereo), two launches bit-identical — and the mono and two-image
+extractors and the stereo frame function, card against CPU.
 They skip without a card.  This file imports neither JAX nor the JAX
 package, so it also runs where only PyTorch is installed:
 
@@ -80,9 +81,73 @@ def test_extractor_on_card_matches_cpu():
         torch.from_numpy(img).cuda())
     c = build_atlas_extractor(cfg.orb, 480, 640, "cpu")(torch.from_numpy(img))
     assert fast_cuda.launches == before + 1
-    same = ((g.valid.cpu() == c.valid) & (g.octave.cpu() == c.octave) &
+    assert float(_same_slots(g, c).float().mean()) >= 0.99
+
+
+def _stereo_pair(cfg):
+    """Frame 0 of the bench sequence and its right eye, at cfg's camera."""
+    from orb_slam2_tpu_torch.io import synthetic
+    left = synthetic.generate(cfg.camera, n_frames=1, n_points=50, seed=0)
+    right = synthetic.generate(
+        cfg.camera, n_frames=1, n_points=4, seed=0,
+        poses_override=synthetic.right_poses(left.poses_twc,
+                                             cfg.camera.baseline))
+    return torch.from_numpy(left.images[0]), torch.from_numpy(right.images[0])
+
+
+def _same_slots(g, c):
+    return ((g.valid.cpu() == c.valid) & (g.octave.cpu() == c.octave) &
             ((g.uv.cpu() - c.uv).abs().amax(-1) <= 1e-3))
+
+
+@pytest.mark.cuda
+def test_two_image_extractor_on_card_matches_cpu():
+    """A 640x480 stereo pair through the two-image extractor: one kernel
+    launch for all 16 planes on the card; per image the same keypoint
+    slots as the CPU run, and the same raw atlas."""
+    _card()
+    from orb_slam2_tpu_torch.frontend.atlas import build_atlas_extractor
+    cfg = config.SLAMConfig(sensor=config.STEREO,
+                            camera=config.CameraConfig(bf=40.0))
+    pair = torch.stack(_stereo_pair(cfg))
+    before = fast_cuda.launches
+    g, ga = build_atlas_extractor(cfg.orb, 480, 640, "cuda", n_images=2,
+                                  return_atlas=True)(pair.cuda())
+    c, ca = build_atlas_extractor(cfg.orb, 480, 640, "cpu", n_images=2,
+                                  return_atlas=True)(pair)
+    assert fast_cuda.launches == before + 1
+    assert ga.shape == (16, 480, 640)
+    assert float((ga.cpu() - ca).abs().max()) <= 1e-3
+    for b in range(2):
+        same = _same_slots(type(g)(*(a[b] for a in g)),
+                           type(c)(*(a[b] for a in c)))
+        assert float(same.float().mean()) >= 0.99, b
+
+
+@pytest.mark.cuda
+def test_stereo_frame_fn_on_card_matches_cpu():
+    """The stereo frame function at the bench's stereo configuration, card
+    against CPU, with the CPU tests' per-image tolerances: matched sets
+    with Jaccard >= 0.98; ur within 1e-2 px and depth within 1e-3 m where
+    both match on the same slot."""
+    _card()
+    from orb_slam2_tpu_torch.pipeline.frame import build_stereo_frame_fn
+    cfg = config.SLAMConfig(sensor=config.STEREO,
+                            camera=config.CameraConfig(bf=40.0))
+    left, right = _stereo_pair(cfg)
+    before = fast_cuda.launches
+    g = build_stereo_frame_fn(cfg, "cuda")(left.cuda(), right.cuda(), 0, 0.0)
+    c = build_stereo_frame_fn(cfg, "cpu")(left, right, 0, 0.0)
+    assert fast_cuda.launches == before + 1
+    same = (g.valid.cpu() == c.valid) & \
+        ((g.uv_raw.cpu() - c.uv_raw).abs().amax(-1) <= 1e-3)
     assert float(same.float().mean()) >= 0.99
+    gm, cm = g.ur.cpu() >= 0, c.ur >= 0
+    assert int(cm.sum()) > 300
+    assert int((gm & cm).sum()) / int((gm | cm).sum()) >= 0.98
+    b = gm & cm & same
+    assert float((g.ur.cpu() - c.ur)[b].abs().max()) <= 1e-2
+    assert float((g.depth.cpu() - c.depth)[b].abs().max()) <= 1e-3
 
 
 K4 = (500.0, 500.0, 320.0, 240.0)
@@ -113,12 +178,14 @@ def _pose_problem(seed, n, stereo_frac, bf=40.0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,stereo_frac", [(1024, 0.0), (1024, 1 / 3),
-                                           (64, 0.0), (8192, 0.0)])
+                                           (1024, 1.0), (64, 0.0),
+                                           (8192, 0.0)])
 def test_pose_lm_kernel_matches_plain_on_card(n, stereo_frac):
     """Pose within 1e-4 (float32 sums in another order), inlier masks equal
     on >= 99% of points and counts within 2 (a chi^2 at its threshold may
     flip); `pose_optimize` on CUDA tensors launches the kernel once.
-    N = 8192 is the most a launch takes (8 points a thread)."""
+    N = 8192 is the most a launch takes (8 points a thread); stereo_frac
+    1.0 makes every row stereo, as on the stereo path."""
     _card()
     p = _pose_problem(n, n, stereo_frac)
     before, calls = pose_lm_cuda.launches, pose_opt.cuda_calls

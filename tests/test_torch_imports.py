@@ -69,7 +69,9 @@ def _builders():
     from orb_slam2_tpu_torch import config
     from orb_slam2_tpu_torch.frontend.atlas import build_atlas_extractor
     from orb_slam2_tpu_torch.frontend.extractor import build_extractor
-    from orb_slam2_tpu_torch.pipeline.frame import build_mono_frame_fn
+    from orb_slam2_tpu_torch.pipeline.frame import (build_mono_frame_fn,
+                                                    build_rgbd_frame_fn,
+                                                    build_stereo_frame_fn)
     from orb_slam2_tpu_torch.pipeline.system import DEFAULT_VOCAB, \
         build_full_step
     from orb_slam2_tpu_torch.place.vocab import Vocabulary, build_transform
@@ -79,6 +81,8 @@ def _builders():
                                                                64),
         "build_extractor": lambda: build_extractor(cfg.orb, 48, 64),
         "build_mono_frame_fn": lambda: build_mono_frame_fn(cfg),
+        "build_rgbd_frame_fn": lambda: build_rgbd_frame_fn(cfg),
+        "build_stereo_frame_fn": lambda: build_stereo_frame_fn(cfg),
         "build_full_step": lambda: build_full_step(cfg),
         "build_transform": lambda: build_transform(
             Vocabulary.load(DEFAULT_VOCAB)),
@@ -86,7 +90,8 @@ def _builders():
 
 
 @pytest.mark.parametrize("name", ["build_atlas_extractor", "build_extractor",
-                                  "build_mono_frame_fn", "build_full_step",
+                                  "build_mono_frame_fn", "build_rgbd_frame_fn",
+                                  "build_stereo_frame_fn", "build_full_step",
                                   "build_transform"])
 def test_builders_default_to_cuda(name, monkeypatch):
     """With no device named, a builder puts its constants on the card, so

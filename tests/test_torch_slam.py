@@ -150,7 +150,7 @@ def test_full_step_from_carried_state_matches_jax(jax_run, port_run, seq,
     step = tsystem.build_full_step(
         small_cfg(tconfig), "cpu",
         port_run._transform if vocab == "on" else None)
-    t_state, t_ts, _, t_hud = step(tst, tts, torch.from_numpy(img), SNAP,
+    t_state, t_ts, _, t_hud = step(tst, tts, (torch.from_numpy(img),), SNAP,
                                    float(seq.timestamps[SNAP]))
     j_hud, t_hud = np.asarray(j_hud), t_hud.numpy()
     assert t_hud[HUD_STATUS] == j_hud[HUD_STATUS] == 2
