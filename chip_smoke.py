@@ -53,7 +53,32 @@ each of which fails the run when it fails:
      a keyframe after the first;
  10. RGB-D main path: the same with sensor RGBD, fed the sequence's depth
      maps, through `SLAM.track_rgbd`, under test_rgbd_e2e's 0.02 m; one
-     FAST launch over 8 planes a frame.
+     FAST launch over 8 planes a frame;
+ 11. mono localisation: the bench mono sequence mapped over frames 0-45,
+     `save_map`, a fresh session `load_map` + `activate_localization_mode`
+     over frames 10-30: status OK, the map unchanged, scale-aligned ATE
+     <= 0.05 m;
+ 12. the KITTI preset through the CLI: a synthetic sequence (the room at
+     the KITTI 00-02 camera, 1241x376, forward motion, 40 frames) written
+     as a KITTI odometry directory (8-bit PNGs, times.txt) with a KITTI
+     00-02 settings file (2048 keyframes, 131,072 points), `cli.main(["run",
+     "--dataset", "kitti", ...])`, the KITTI-format file read back: >= 90%
+     tracked, metric ATE <= 0.06 m and within 0.01 m of the JAX package's
+     on the same directory, keyframes within 2 of its; prints the frames
+     need_close fired on, the close depth points made, frame ms, launches
+     a frame and peak memory;
+ 13. stereo localisation at the KITTI preset: phase 12's map saved, loaded
+     in a fresh session in localisation mode over frames 5-24: status OK,
+     the map unchanged, VO points used as pose-LM inliers > 0;
+ 14. the bench's stereo sequence as a TUM RGB-D directory (8-bit RGB PNGs,
+     16-bit depth PNGs at factor 5000) through the CLI: >= 90% tracked,
+     metric ATE <= 0.02 m; `save_keyframe_trajectory_tum` writes one line
+     per live keyframe;
+ 15. frame batching: the bench mono sequence's first 60 frames with
+     frame_batch = 4 and 1 give bit-identical trajectory logs up to the
+     first host reaction that changed the state (named if there is one).
+ Phase 3 also holds FAST bit-exact on the KITTI stereo pair's real atlas,
+ and phase 4 the pose LM on an N = 2048 problem recorded in phase 12.
 
 Prints the card's name and power limit and a JSON line describing every
 ported kernel, then, as the last line, {"ok": true, "device": {...}}.  Exits
@@ -65,9 +90,12 @@ import dataclasses
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -119,6 +147,172 @@ FIRST_SLICE_MAIN = (2.602, 385.12, 447.67, 525.46)
 SECOND_SLICE_FAST = (0.06769, 0.4420)
 SECOND_SLICE_POSE = (0.2028, 0.2665)
 CLUSTERS = (1, 2, 4, 8)
+
+
+# phases 11-15.  Phase 11: the bench mono sequence mapped over frames 0-45,
+# then localised over 10-30 on the saved map; ATE gate of a localisation
+# run (scale-aligned, tests/test_e2e.py:170-192)
+LOC_MAP_FRAMES, LOC_FRAMES = 46, (10, 31)
+LOC_ATE_GATE_M = 0.05
+# phase 12: a synthetic sequence in the KITTI odometry layout at the
+# KITTI 00-02 camera, through the CLI; phase 13 localises on its map over
+# KITTI_LOC_FRAMES
+KITTI_FRAMES, KITTI_TRAJECTORY = 40, "forward"
+KITTI_LOC_FRAMES = (5, 25)
+KITTI_TRACKED_MIN_FRAC, KITTI_ATE_GATE_M = 0.9, 0.06
+# phase 14: the bench's stereo sequence (its left images and depth maps)
+# in the TUM RGB-D layout, through the CLI
+TUM_ATE_GATE_M = 0.02
+# phase 15: frame batching
+BATCH_FRAMES, BATCH = 60, 4
+# the JAX package on the CPU on the same directories and sessions
+# (scripts/jax_session_reference.py): phase 11's localisation ATE, phase
+# 12's metric ATE and keyframes, phase 14's metric ATE and keyframes.  The
+# port must stay within JAX_ATE_MARGIN_M of JAX's ATE (or under the gate,
+# whichever is tighter) and within JAX_KF_MARGIN keyframes
+JAX_MONO_LOC_ATE = 0.02112
+JAX_KITTI = (0.004475, 3)
+JAX_TUM = (0.001873, 3)
+JAX_ATE_MARGIN_M, JAX_KF_MARGIN = 0.01, 2
+
+KITTI_SETTINGS = """%YAML:1.0
+# KITTI 00-02 (the reference's Examples/Stereo/KITTI00-02.yaml) with the
+# engine's capacities for it
+Camera.fx: 718.856
+Camera.fy: 718.856
+Camera.cx: 607.1928
+Camera.cy: 185.2157
+Camera.k1: 0.0
+Camera.k2: 0.0
+Camera.p1: 0.0
+Camera.p2: 0.0
+Camera.width: 1241
+Camera.height: 376
+Camera.fps: 10.0
+Camera.bf: 386.1448
+Camera.RGB: 1
+ThDepth: 35
+ORBextractor.nFeatures: 2000
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 8
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+TPU.maxKeyframes: 2048
+TPU.maxPoints: 131072
+"""
+
+
+def tum_settings(cam) -> str:
+    """tests/test_io_ingest.py's YAML keys for camera `cam` (no
+    distortion) at the bench's capacities."""
+    return f"""%YAML:1.0
+Camera.fx: {cam.fx}
+Camera.fy: {cam.fy}
+Camera.cx: {cam.cx}
+Camera.cy: {cam.cy}
+Camera.k1: 0.0
+Camera.k2: 0.0
+Camera.p1: 0.0
+Camera.p2: 0.0
+Camera.width: {cam.width}
+Camera.height: {cam.height}
+Camera.fps: {cam.fps}
+Camera.bf: {cam.bf}
+Camera.RGB: 1
+ThDepth: {cam.th_depth}
+DepthMapFactor: {cam.depth_map_factor}
+ORBextractor.nFeatures: 1000
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 8
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+TPU.maxKeypoints: 1024
+TPU.maxKeyframes: 512
+TPU.maxPoints: 32768
+"""
+
+
+def png_bytes(arr: np.ndarray) -> bytes:
+    """A PNG of an 8-bit gray [H, W], 8-bit RGB [H, W, 3] or 16-bit gray
+    [H, W] array, every row with the Sub filter."""
+    H, W = arr.shape[:2]
+    ch = 1 if arr.ndim == 2 else arr.shape[2]
+    depth = 16 if arr.dtype == np.uint16 else 8
+    raw = np.ascontiguousarray(arr.astype(">u2") if depth == 16 else arr,
+                               ).view(np.uint8).reshape(H, -1)
+    bpp = ch * depth // 8
+    sub = raw.copy()
+    sub[:, bpp:] = raw[:, bpp:] - raw[:, :-bpp]         # wraps mod 256
+    body = np.concatenate([np.ones((H, 1), np.uint8), sub], 1).tobytes()
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(
+            ">I", zlib.crc32(kind + data) & 0xFFFFFFFF)
+
+    return (b"\x89PNG\r\n\x1a\n" +
+            chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth,
+                                       {1: 0, 3: 2}[ch], 0, 0, 0)) +
+            chunk(b"IDAT", zlib.compress(body, 6)) + chunk(b"IEND", b""))
+
+
+def _u8(img: np.ndarray) -> np.ndarray:
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_kitti_dir(root: str, seq, right) -> None:
+    """KITTI odometry layout: image_0/ and image_1/ 8-bit gray PNGs,
+    times.txt."""
+    for sub, imgs in (("image_0", seq.images), ("image_1", right)):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        for i, img in enumerate(imgs):
+            with open(os.path.join(root, sub, f"{i:06d}.png"), "wb") as f:
+                f.write(png_bytes(_u8(img)))
+    with open(os.path.join(root, "times.txt"), "w") as f:
+        f.write("".join(f"{t:.6e}\n" for t in seq.timestamps))
+
+
+def write_tum_rgbd_dir(root: str, seq, factor: float) -> None:
+    """TUM RGB-D layout: rgb/ 8-bit RGB PNGs, depth/ 16-bit PNGs (metres
+    times `factor`), rgb.txt and depth.txt."""
+    os.makedirs(os.path.join(root, "rgb"), exist_ok=True)
+    os.makedirs(os.path.join(root, "depth"), exist_ok=True)
+    rgb, dep = [], []
+    for t, img, d in zip(seq.timestamps, seq.images, seq.depths):
+        rp, dp = f"rgb/{t:.6f}.png", f"depth/{t:.6f}.png"
+        with open(os.path.join(root, rp), "wb") as f:
+            f.write(png_bytes(np.repeat(_u8(img)[..., None], 3, axis=2)))
+        with open(os.path.join(root, dp), "wb") as f:
+            f.write(png_bytes((d * factor).astype(np.uint16)))
+        rgb.append(f"{t:.6f} {rp}\n")
+        dep.append(f"{t:.6f} {dp}\n")
+    with open(os.path.join(root, "rgb.txt"), "w") as f:
+        f.write("# color images\n# timestamp filename\n" + "".join(rgb))
+    with open(os.path.join(root, "depth.txt"), "w") as f:
+        f.write("# depth images\n# timestamp filename\n" + "".join(dep))
+
+
+def kitti_sequence(synthetic, cam, n_frames: int = KITTI_FRAMES,
+                   trajectory: str = KITTI_TRAJECTORY):
+    """The room rendered at the KITTI camera, and its right eye from
+    `right_poses` (bench.py's way)."""
+    seq = synthetic.generate(cam, n_frames=n_frames, n_points=500,
+                             trajectory=trajectory, seed=0)
+    right = synthetic.generate(
+        cam, n_frames=n_frames, n_points=4, trajectory=trajectory, seed=0,
+        poses_override=synthetic.right_poses(seq.poses_twc, cam.baseline))
+    return seq, right.images
+
+
+def read_kitti_positions(path: str) -> np.ndarray:
+    """Camera positions [F, 3] of a KITTI-format file (3x4 Twc rows); the
+    ATE takes positions only."""
+    return np.loadtxt(path, ndmin=2)[:, [3, 7, 11]]
+
+
+def read_tum_positions(path: str):
+    """(timestamps [F], camera positions [F, 3]) of a TUM-format file."""
+    rows = np.loadtxt(path, ndmin=2)
+    return rows[:, 0], rows[:, 1:4]
 
 
 class PhaseError(Exception):
@@ -575,15 +769,314 @@ def phase_loop(SLAM, cfg, synthetic, evaluate):
           f"loop correction hurt: {ate_closed} vs open {ate_open}")
 
 
+def _zero(counters):
+    fast_cuda, pose_lm_cuda, pose_opt = counters
+    fast_cuda.launches = fast_cuda.planes = 0
+    pose_lm_cuda.launches = pose_opt.cuda_calls = 0
+
+
+def _read(counters):
+    fast_cuda, pose_lm_cuda, pose_opt = counters
+    return dict(fast_nms=fast_cuda.launches, pose_lm=pose_lm_cuda.launches)
+
+
+def _check_launched(name, counters, launches, frames):
+    """Both kernels launched in the run, every pose LM through its kernel,
+    at most one FAST launch a frame."""
+    check(launches["fast_nms"] > 0 and launches["pose_lm"] > 0,
+          f"{name}: a kernel was not launched ({launches})")
+    check(launches["pose_lm"] == counters[2].cuda_calls,
+          f"{name}: a pose LM bypassed its kernel")
+    check(launches["fast_nms"] <= frames,
+          f"{name}: {launches['fast_nms']} FAST launches for {frames} frames")
+
+
+def _frame_ms(slam, skip=10):
+    times = [t * 1e3 for t in slam.timings[skip:]]
+    qs = statistics.quantiles(times, n=10)
+    return (f"frame ms p50 {statistics.median(times):.2f} p90 {qs[8]:.2f} "
+            f"max {max(times):.2f}")
+
+
+def phase_mono_loc(SLAM, cfg, seq, evaluate, counters, tmp):
+    """Phase 11: map the bench mono sequence, save the map, localise a
+    fresh session on it over LOC_FRAMES."""
+    slam = run_slam(SLAM, cfg, seq, LOC_MAP_FRAMES)
+    path = os.path.join(tmp, "mono_map.npz")
+    slam.save_map(path)
+    n_kf, n_mp = int(slam.state.n_kf), int(slam.state.n_mp)
+    loc = SLAM(cfg, device="cuda")
+    loc.load_map(path)
+    loc.activate_localization_mode()
+    _zero(counters)
+    a, b = LOC_FRAMES
+    run_slam(SLAM, cfg, seq, b, start=a, slam=loc)
+    launches = _read(counters)
+    ate, n = ate_of(loc, seq, evaluate)
+    print(f"mono localisation: map of frames 0-{LOC_MAP_FRAMES - 1} "
+          f"({n_kf} keyframes, {n_mp} points) saved and loaded; frames "
+          f"{a}-{b - 1} tracked {n}/{b - a}, status {loc.status}, keyframes "
+          f"{int(loc.state.n_kf)}, points {int(loc.state.n_mp)}, "
+          f"scale-aligned ATE {ate:.6f} m (JAX on the CPU "
+          f"{JAX_MONO_LOC_ATE}); launches {launches}", flush=True)
+    check(loc.status == 2, f"mono localisation: status {loc.status}")
+    check(int(loc.state.n_kf) == n_kf and int(loc.state.n_mp) == n_mp,
+          "mono localisation changed the map")
+    check(n == b - a, f"mono localisation tracked {n}/{b - a}")
+    check(ate <= LOC_ATE_GATE_M, f"mono localisation ATE {ate} m")
+    _check_launched("mono localisation", counters, launches, b - a)
+    return launches
+
+
+def phase_kitti(port_cli, mapping, tracking, pose_opt, evaluate, counters,
+                kseq, kright, tmp):
+    """Phase 12: the KITTI preset through the CLI on a KITTI-layout
+    directory.  Counts the frames need_close fired on and the close points
+    create_depth_points made; records the pose LMs' problems."""
+    root = os.path.join(tmp, "kitti_00")
+    t0 = time.perf_counter()
+    write_kitti_dir(root, kseq, kright)
+    yaml = os.path.join(tmp, "kitti.yaml")
+    with open(yaml, "w") as f:
+        f.write(KITTI_SETTINGS)
+    print(f"KITTI directory: {2 * len(kseq.images)} PNGs of 1241x376 "
+          f"written in {time.perf_counter() - t0:.2f} s", flush=True)
+    need_close, close_made, recorded = [], [], []
+    need_kf, depth_points, optimize = tracking.need_new_keyframe, \
+        mapping.create_depth_points, pose_opt.pose_optimize
+
+    def counted_need(state, ts, frame, cur_pids, n_inl, ok, cfg):
+        out = need_kf(state, ts, frame, cur_pids, n_inl, ok, cfg)
+        need_close.append(out[1])
+        return out
+
+    def counted_depth_points(state, kf_id, cfg):
+        out = depth_points(state, kf_id, cfg)
+        thd = cfg.camera.th_depth * cfg.camera.baseline
+        d = out.kf_depth[kf_id]
+        made = (state.kf_obs[kf_id] < 0) & (out.kf_obs[kf_id] >= 0)
+        close_made.append((made & (d > 0) & (d < thd)).sum())
+        return out
+
+    def recording_optimize(*args):
+        recorded.append(args)
+        return optimize(*args)
+
+    tracking.need_new_keyframe = counted_need
+    mapping.create_depth_points = counted_depth_points
+    pose_opt.pose_optimize = recording_optimize
+    out = os.path.join(tmp, "kitti_traj.txt")
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    try:
+        t0 = time.perf_counter()
+        slam = port_cli.main(["run", "--dataset", "kitti", "--sensor",
+                              "stereo", "--path", root, "--settings", yaml,
+                              "--output", out])
+        wall = time.perf_counter() - t0
+    finally:
+        tracking.need_new_keyframe = need_kf
+        mapping.create_depth_points = depth_points
+        pose_opt.pose_optimize = optimize
+    launches = _read(counters)
+    peak = torch.cuda.max_memory_allocated()
+    est = read_kitti_positions(out)
+    ie, ig = evaluate.match_timestamps(slam.timestamps(), kseq.timestamps)
+    check(len(est) == len(ie), "KITTI file and session disagree")
+    ate = evaluate.ate_rmse(est[ie], kseq.poses_twc[ig], align_scale=False)
+    n_frames = len(kseq.images)
+    n_close = int(sum(int(x) for x in need_close))
+    made = [int(x) for x in close_made]
+    n_kf = int(slam.state.n_kf)
+    print(f"KITTI preset via the CLI ({KITTI_TRAJECTORY}, {n_frames} "
+          f"frames, 1241x376, 2000 features, 2048 keyframes x 2048 "
+          f"keypoints, 131,072 points): {wall:.2f} s, tracked {len(ie)}/"
+          f"{n_frames}, metric ATE {ate:.6f} m, keyframes {n_kf}, map "
+          f"points {int(slam.state.n_mp)} (JAX on the CPU: ATE "
+          f"{JAX_KITTI[0]} m, {JAX_KITTI[1]} keyframes); need_close fired "
+          f"on {n_close} of {len(need_close)} tracked frames; close depth "
+          f"points made {made} at {len(made)} insertions; "
+          f"{_frame_ms(slam)}; launches {launches} "
+          f"({launches['fast_nms'] / n_frames:.2f} FAST, "
+          f"{launches['pose_lm'] / n_frames:.2f} pose LM a frame); peak "
+          f"memory {peak / 2**30:.3f} GiB", flush=True)
+    check(len(ie) >= KITTI_TRACKED_MIN_FRAC * n_frames,
+          f"KITTI: tracked {len(ie)}/{n_frames}")
+    check(ate <= min(KITTI_ATE_GATE_M, JAX_KITTI[0] + JAX_ATE_MARGIN_M),
+          f"KITTI: ATE {ate} m (JAX {JAX_KITTI[0]})")
+    check(abs(n_kf - JAX_KITTI[1]) <= JAX_KF_MARGIN,
+          f"KITTI: {n_kf} keyframes (JAX {JAX_KITTI[1]})")
+    check(sum(made) > 0, "KITTI: no close depth point was made")
+    _check_launched("KITTI", counters, launches, n_frames)
+    n_valid = [int(a[5].sum()) for a in recorded]
+    best = recorded[int(np.argmax(n_valid))]
+    check(best[1].shape[0] == 2048, "KITTI: pose LM problems not N = 2048")
+    return slam, root, launches, best
+
+
+def phase_kitti_loc(SLAM, datasets, tracking, counters, kslam, root,
+                    evaluate, kseq, tmp):
+    """Phase 13: the KITTI map saved, loaded in a fresh session, localised
+    over KITTI_LOC_FRAMES with VO points."""
+    path = os.path.join(tmp, "kitti_map.npz")
+    kslam.save_map(path)
+    loc = SLAM(kslam.cfg, device="cuda")
+    loc.load_map(path)
+    loc.activate_localization_mode()
+    n_kf, n_mp = int(loc.state.n_kf), int(loc.state.n_mp)
+    vo_cand, vo_used = [], []
+    motion, vo_mask = tracking.track_with_motion_model, tracking.vo_point_mask
+
+    def counted_mask(ts, pids, cfg_, loc_only):
+        out = vo_mask(ts, pids, cfg_, loc_only)
+        vo_cand.append(out.sum())
+        return out
+
+    def counted_motion(state, ts, frame, cfg_, loc_only=False):
+        pids, opt, ok = motion(state, ts, frame, cfg_, loc_only)
+        vo_used.append((opt.inliers & (pids < 0)).sum())
+        return pids, opt, ok
+
+    tracking.track_with_motion_model = counted_motion
+    tracking.vo_point_mask = counted_mask
+    a, b = KITTI_LOC_FRAMES
+    _zero(counters)
+    try:
+        reader = datasets.SequenceReader(
+            datasets.load_kitti_stereo(root)[a:b], "stereo")
+        for left, right, t in reader:
+            loc.track_stereo(left, right, t)
+        loc.flush()
+    finally:
+        tracking.track_with_motion_model = motion
+        tracking.vo_point_mask = vo_mask
+    launches = _read(counters)
+    cand = [int(x) for x in vo_cand]
+    used = [int(x) for x in vo_used]
+    ate, n = ate_of(loc, kseq, evaluate, align_scale=False)
+    print(f"KITTI stereo localisation: frames {a}-{b - 1} on the saved map "
+          f"({n_kf} keyframes): tracked {n}/{b - a}, status {loc.status}, "
+          f"metric ATE {ate:.6f} m, keyframes {int(loc.state.n_kf)}; VO "
+          f"points: candidates {cand}, used as pose-LM inliers {used} "
+          f"(total {sum(used)}); launches {launches}", flush=True)
+    check(loc.status == 2, f"KITTI localisation: status {loc.status}")
+    check(int(loc.state.n_kf) == n_kf and int(loc.state.n_mp) == n_mp,
+          "KITTI localisation changed the map")
+    check(sum(used) > 0, "KITTI localisation used no VO point")
+    _check_launched("KITTI localisation", counters, launches, b - a)
+    return launches
+
+
+def phase_tum(port_cli, evaluate, counters, seq, cam, tmp):
+    """Phase 14: the bench's stereo sequence (left images, depth maps) in
+    the TUM RGB-D layout through the CLI; the keyframe trajectory file."""
+    root = os.path.join(tmp, "tum_rgbd")
+    write_tum_rgbd_dir(root, seq, cam.depth_map_factor)
+    yaml = os.path.join(tmp, "tum.yaml")
+    with open(yaml, "w") as f:
+        f.write(tum_settings(cam))
+    out = os.path.join(tmp, "tum_traj.txt")
+    _zero(counters)
+    slam = port_cli.main(["run", "--dataset", "tum", "--sensor", "rgbd",
+                          "--path", root, "--settings", yaml, "--output",
+                          out])
+    launches = _read(counters)
+    ts, est = read_tum_positions(out)
+    ie, ig = evaluate.match_timestamps(ts, seq.timestamps)
+    ate = evaluate.ate_rmse(est[ie], seq.poses_twc[ig], align_scale=False)
+    kf_path = os.path.join(tmp, "tum_kf.txt")
+    slam.save_keyframe_trajectory_tum(kf_path)
+    kf_lines = len(np.loadtxt(kf_path, ndmin=2))
+    n_kf, n_frames = int(slam.state.n_kf), len(seq.images)
+    print(f"TUM RGB-D layout via the CLI: tracked {len(ie)}/{n_frames}, "
+          f"metric ATE {ate:.6f} m, keyframes {n_kf} ({kf_lines} lines in "
+          f"the keyframe trajectory), map points {int(slam.state.n_mp)} (JAX "
+          f"on the CPU: ATE {JAX_TUM[0]} m, {JAX_TUM[1]} keyframes); "
+          f"{_frame_ms(slam)}; launches {launches}", flush=True)
+    check(len(ie) >= DEPTH_TRACKED_MIN_FRAC * n_frames,
+          f"TUM: tracked {len(ie)}/{n_frames}")
+    check(ate <= min(TUM_ATE_GATE_M, JAX_TUM[0] + JAX_ATE_MARGIN_M),
+          f"TUM: ATE {ate} m")
+    check(abs(n_kf - JAX_TUM[1]) <= JAX_KF_MARGIN,
+          f"TUM: {n_kf} keyframes (JAX {JAX_TUM[1]})")
+    check(kf_lines == n_kf, f"TUM: {kf_lines} keyframe lines for {n_kf}")
+    _check_launched("TUM", counters, launches, n_frames)
+    return launches
+
+
+def phase_batch(SLAM, loopclosing, cfg, seq, counters):
+    """Phase 15: the bench mono sequence's first BATCH_FRAMES frames with
+    frame_batch = BATCH against frame_batch = 1: bit-identical trajectory
+    logs up to the first host reaction that changed the state."""
+    runs = {}
+    correct = loopclosing.correct
+    for fb in (1, BATCH):
+        slam = SLAM(cfg.replace(frame_batch=fb), device="cuda")
+        events = []
+        reset, merge, check_reloc = slam.reset, slam._gba.merge, \
+            slam._check_reloc
+
+        def on_reset(slam=slam, reset=reset, events=events):
+            events.append((slam.frame_count, "reset"))
+            reset()
+
+        def on_merge(*a, slam=slam, merge=merge, events=events):
+            events.append((slam.frame_count, "global BA merged"))
+            return merge(*a)
+
+        def on_reloc(force=False, slam=slam, events=events,
+                     check_reloc=check_reloc):
+            ts = slam.ts
+            check_reloc(force)
+            if slam.ts is not ts:
+                events.append((slam.frame_count, "relocalised"))
+
+        def on_correct(*a, slam=slam, events=events):
+            events.append((slam.frame_count, "loop corrected"))
+            return correct(*a)
+
+        slam.reset, slam._gba.merge, slam._check_reloc = on_reset, \
+            on_merge, on_reloc
+        loopclosing.correct = on_correct
+        _zero(counters)
+        try:
+            run_slam(SLAM, cfg, seq, BATCH_FRAMES, slam=slam)
+        finally:
+            loopclosing.correct = correct
+        runs[fb] = (slam, events, _read(counters))
+    (a, ev_a, launches), (b, ev_b, _) = runs[BATCH], runs[1]
+    ta = a.ts.traj[:BATCH_FRAMES].cpu().numpy()
+    tb = b.ts.traj[:BATCH_FRAMES].cpu().numpy()
+    differ = np.nonzero((ta != tb).any(1))[0]
+    first = int(differ[0]) if len(differ) else None
+    events = sorted(set(ev_a + ev_b))
+    print(f"frame batching: {BATCH_FRAMES} mono frames with frame_batch = "
+          f"{BATCH} and 1: trajectory logs "
+          + ("bit-identical" if first is None else
+             f"first differ at frame {first}")
+          + f"; host reactions {events or 'none'}; tracked "
+          f"{int((ta[:, 15] > 0.5).sum())} / {int((tb[:, 15] > 0.5).sum())};"
+          f" batched run launches {launches}", flush=True)
+    if first is not None:
+        check(any(f <= first + a.hud_lag for f, _ in events),
+              f"frame batching: runs differ at frame {first} with no host "
+              "reaction before it")
+    check(int((ta[:, 15] > 0.5).sum()) >= TRACKED_MIN_FRAC * BATCH_FRAMES,
+          "frame batching: the batched run lost track")
+    _check_launched("frame batching", counters, launches, BATCH_FRAMES)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false")
     try:
-        from orb_slam2_tpu_torch import config
+        from orb_slam2_tpu_torch import cli as port_cli
+        from orb_slam2_tpu_torch import config, native_build
         from orb_slam2_tpu_torch.frontend import fast_cuda, pyramid
         from orb_slam2_tpu_torch.frontend.atlas import build_atlas_extractor
-        from orb_slam2_tpu_torch.io import evaluate, synthetic
-        from orb_slam2_tpu_torch.pipeline import mapping
+        from orb_slam2_tpu_torch.io import datasets, evaluate, synthetic
+        from orb_slam2_tpu_torch.pipeline import loopclosing, mapping, tracking
         from orb_slam2_tpu_torch.pipeline.system import SLAM
         from orb_slam2_tpu_torch.solvers import pose_lm_cuda, pose_opt
     except ImportError as e:
@@ -612,7 +1105,8 @@ def main() -> int:
     st_cfg = config.SLAMConfig(sensor=config.STEREO,
                                camera=config.CameraConfig(bf=40.0))
     rgbd_cfg = st_cfg.replace(sensor=config.RGBD)
-    render = ThreadPoolExecutor(3)
+    kitti_cam = config.kitti_config().camera
+    render = ThreadPoolExecutor(4)
     seq_f = render.submit(synthetic.generate, cam, n_frames=N_FRAMES,
                           n_points=500, trajectory="xyz", seed=0)
     st_seq_f = render.submit(synthetic.generate, st_cfg.camera,
@@ -623,13 +1117,15 @@ def main() -> int:
         n_points=4, trajectory="xyz", seed=0,
         poses_override=synthetic.right_poses(
             synthetic.xyz_trajectory(STEREO_FRAMES), st_cfg.camera.baseline))
+    kitti_f = render.submit(kitti_sequence, synthetic, kitti_cam)
     render.shutdown(wait=False)
     try:
         # 2. build every kernel at once (one nvcc each): FAST, the pose LM
         # as the source has it, and the pose LM at each cluster size
         t0 = time.perf_counter()
         jobs = [lambda: fast_cuda.build(verbose=True),
-                lambda: pose_lm_cuda.build(verbose=True)] + [
+                lambda: pose_lm_cuda.build(verbose=True),
+                lambda: native_build.build("png_unfilter")] + [
             (lambda c=c: pose_lm_cuda.build(cluster=c)) for c in CLUSTERS]
         with ThreadPoolExecutor(len(jobs)) as ex:
             libs = list(ex.map(lambda job: job(), jobs))
@@ -743,10 +1239,46 @@ def main() -> int:
             "rgbd main path", SLAM, rgbd_cfg, st_seq, None, evaluate,
             counters, mapping, pose_opt)
 
-        # 4 (continued). the pose LM on a problem of the stereo run
-        pose_rows += check_pose_problems(pose_lm_cuda, pose_opt, [(
-            "stereo frame of phase 9",
-            tuple(a[None] for a in st_problem[:7]) + tuple(st_problem[7:]))])
+        # 11-15: the session API (PNG, settings, checkpoints in a
+        # temporary directory)
+        with tempfile.TemporaryDirectory(dir=here, prefix="_smoke_") as tmp:
+            launches["mono_loc"] = phase_mono_loc(SLAM, cfg, seq, evaluate,
+                                                  counters, tmp)
+            t0 = time.perf_counter()
+            kseq, kright = kitti_f.result()
+            print(f"KITTI sequence rendered ({time.perf_counter() - t0:.1f} s "
+                  "waited)", flush=True)
+            kslam, kroot, launches["kitti_cli"], kitti_problem = phase_kitti(
+                port_cli, mapping, tracking, pose_opt, evaluate, counters,
+                kseq, kright, tmp)
+            launches["kitti_loc"] = phase_kitti_loc(
+                SLAM, datasets, tracking, counters, kslam, kroot, evaluate,
+                kseq, tmp)
+            del kslam
+            launches["tum_cli"] = phase_tum(port_cli, evaluate, counters,
+                                            st_seq, rgbd_cfg.camera, tmp)
+        launches["batch"] = phase_batch(SLAM, loopclosing, cfg, seq,
+                                        counters)
+
+        # 3 (continued). FAST on the KITTI stereo pair's real atlas
+        kpair = torch.stack([torch.as_tensor(kseq.images[0]),
+                             torch.as_tensor(kright[0])]).cuda()
+        _, kitti_atlas = build_atlas_extractor(
+            config.kitti_config().orb, kitti_cam.height, kitti_cam.width,
+            "cuda", n_images=2, return_atlas=True)(kpair)
+        rows += check_fast(fast_cuda, [(
+            "KITTI stereo pair 1241x376",
+            level_shapes(kitti_cam.height, kitti_cam.width), 2,
+            kitti_atlas)])
+        check(rows[-1]["exact"], "fast_nms disagrees on the KITTI atlas")
+
+        # 4 (continued). the pose LM on a problem of the stereo run and on
+        # an N = 2048 one of the KITTI run
+        pose_rows += check_pose_problems(pose_lm_cuda, pose_opt, [
+            (name_, tuple(a[None] for a in prob[:7]) + tuple(prob[7:]))
+            for name_, prob in (("stereo frame of phase 9", st_problem),
+                                ("KITTI frame of phase 12, N = 2048",
+                                 kitti_problem))])
     except PhaseError as e:
         return fail(str(e))
 
@@ -758,8 +1290,8 @@ def main() -> int:
         "name": "fast_nms", "route": "cuda",
         "source": "orb_slam2_tpu_torch/csrc/fast_nms.cu",
         "replaces": "orb_slam2_tpu/frontend/pallas_fast.py:42",
-        # over the mono, stereo and RGB-D main paths (each counted from 0
-        # just before its run), and per path
+        # over every path driven (each counted from 0 just before its run),
+        # and per path
         "launches": total["fast_nms"],
         "launches_by_path": by_path("fast_nms"),
         "max_abs_err": max(r["err"] for r in rows),

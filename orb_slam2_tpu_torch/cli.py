@@ -1,0 +1,149 @@
+"""Command-line interface of the port (counterpart of orb_slam2_tpu/cli.py):
+the reference's six example binaries (mono_tum, mono_kitti, mono_euroc,
+stereo_kitti, stereo_euroc, rgbd_tum — Examples/, CMakeLists.txt:85-112)
+and the synthetic sequence behind one entry point:
+
+    tpu-slam-torch run --dataset tum --sensor mono --path <seq> [--settings x.yaml]
+    tpu-slam-torch run --dataset kitti --sensor stereo --path <seq> --settings KITTI00-02.yaml
+    tpu-slam-torch run --dataset synthetic --sensor mono --frames 120
+
+It runs on the CUDA card unless `--device` names another device.  The
+trajectory goes to `--output` (default CameraTrajectory.txt) in TUM format,
+or in KITTI format for `--dataset kitti`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+
+
+def _build_cfg(args):
+    from orb_slam2_tpu_torch import config as cfg_mod
+    sensor = dict(mono=cfg_mod.MONOCULAR, stereo=cfg_mod.STEREO,
+                  rgbd=cfg_mod.RGBD)[args.sensor]
+    if args.settings:
+        from orb_slam2_tpu_torch.io.settings import load_settings
+        return load_settings(args.settings, sensor)
+    if args.dataset == "kitti":
+        return cfg_mod.kitti_config()
+    if args.dataset == "euroc":
+        return cfg_mod.euroc_config()
+    if args.dataset == "tum":
+        return cfg_mod.tum1_config(sensor)
+    cam = cfg_mod.CameraConfig(bf=40.0 if sensor != cfg_mod.MONOCULAR else 0.0)
+    return cfg_mod.SLAMConfig(sensor=sensor, camera=cam)
+
+
+def _median_ms(timings) -> float:
+    return float(np.median(timings[10:]) * 1000) if len(timings) > 10 \
+        else float("nan")
+
+
+def _track(slam, sensor: str, data):
+    if sensor == "mono":
+        slam.track_mono(*data)
+    elif sensor == "rgbd":
+        slam.track_rgbd(*data)
+    else:
+        slam.track_stereo(*data)
+
+
+def cmd_run(args):
+    from orb_slam2_tpu_torch.pipeline.system import SLAM
+
+    cfg = _build_cfg(args)
+    slam = SLAM(cfg, device=args.device)
+    if args.dataset == "synthetic":
+        from orb_slam2_tpu_torch.io import evaluate, synthetic
+        seq = synthetic.generate(cfg.camera, n_frames=args.frames,
+                                 n_points=args.points,
+                                 trajectory=args.trajectory, seed=args.seed)
+        # the second image of a frame: the depth map or the right eye
+        second = None
+        if args.sensor == "rgbd":
+            second = seq.depths
+        elif args.sensor == "stereo":
+            second = synthetic.stereo_right_images(seq, cfg.camera)
+        t0 = time.time()
+        for f in range(args.frames):
+            _track(slam, args.sensor, (seq.images[f],) +
+                   (() if second is None else (second[f],)) +
+                   (seq.timestamps[f],))
+        wall = time.time() - t0
+        est = slam.poses_twc()
+        ie, ig = evaluate.match_timestamps(slam.timestamps(), seq.timestamps)
+        ate = (evaluate.ate_rmse(est[ie], seq.poses_twc[ig],
+                                 align_scale=args.sensor == "mono")
+               if len(ie) >= 10 else float("nan"))
+        print(f"tracked {len(ie)}/{args.frames}  ATE RMSE {ate*100:.2f} cm  "
+              f"median {_median_ms(slam.timings):.1f} ms/frame  "
+              f"wall {wall:.1f}s")
+    else:
+        from orb_slam2_tpu_torch.io import datasets
+        if args.dataset == "tum" and args.sensor == "mono":
+            items = datasets.load_tum_mono(args.path)
+        elif args.dataset == "tum":
+            items = datasets.load_tum_rgbd(args.path, args.associations)
+        elif args.dataset == "kitti":
+            items = datasets.load_kitti_stereo(args.path)
+        else:
+            items = datasets.load_euroc_stereo(args.path)
+        rectify = None
+        if args.dataset == "euroc" and args.settings:
+            rectify = datasets.euroc_rectify_maps(args.settings)
+        reader = datasets.SequenceReader(
+            items, args.sensor, depth_factor=cfg.camera.depth_map_factor,
+            rectify=rectify)
+        print(f"{len(reader)} frames")
+        read_s, it = [], iter(reader)
+        for i in range(len(reader)):
+            t0 = time.perf_counter()
+            frame_data = next(it)
+            read_s.append(time.perf_counter() - t0)
+            _track(slam, args.sensor, frame_data)
+            if args.max_frames and i + 1 >= args.max_frames:
+                break
+        print(f"median track time {_median_ms(slam.timings):.1f} ms/frame, "
+              f"image read {np.median(read_s) * 1000:.1f} ms/frame")
+
+    out = args.output or "CameraTrajectory.txt"
+    if args.dataset == "kitti":
+        slam.save_trajectory_kitti(out)
+    else:
+        slam.save_trajectory_tum(out)
+    print("trajectory saved to", out)
+    return slam
+
+
+def main(argv=None):
+    """Parse `argv` and run the command; returns the `run` command's
+    session."""
+    ap = argparse.ArgumentParser(prog="tpu-slam-torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    run = sub.add_parser("run", help="run SLAM on a sequence")
+    run.add_argument("--dataset", default="synthetic",
+                     choices=["synthetic", "tum", "kitti", "euroc"])
+    run.add_argument("--sensor", default="mono",
+                     choices=["mono", "stereo", "rgbd"])
+    run.add_argument("--path", help="dataset sequence directory")
+    run.add_argument("--settings", help="reference-format YAML settings")
+    run.add_argument("--associations", help="TUM RGB-D associations file")
+    run.add_argument("--output", help="trajectory output path")
+    run.add_argument("--frames", type=int, default=120)
+    run.add_argument("--points", type=int, default=500)
+    run.add_argument("--trajectory", default="xyz",
+                     choices=["xyz", "forward"])
+    run.add_argument("--seed", type=int, default=0)
+    run.add_argument("--max-frames", type=int, default=0)
+    run.add_argument("--device", default=None,
+                     help="torch device (default: the CUDA card)")
+    run.set_defaults(fn=cmd_run)
+    args = ap.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,13 +1,16 @@
 """Where a frame's time goes on the card.
 
     python3 -m orb_slam2_tpu_torch.frame_profile [--sensor mono|stereo|rgbd]
-        [--frames 80] [--window 20] [--out PATH]
+        [--preset bench|kitti] [--frames 80] [--window 20] [--out PATH]
 
 Runs `SLAM` on CUDA at the bench's configuration for the sensor (mono: the
 default SLAMConfig, 640x480, 1000 features; stereo and RGB-D: the same with
 bf = 40, as bench.py `_run_stereo`) on the bench sequence (xyz trajectory,
 500 points, seed 0; the right eye rendered from `right_poses`, the depth
-maps the renderer's), and reports:
+maps the renderer's), or with `--preset kitti` the KITTI 00-02 stereo
+preset (`kitti_config`: 1241x376, bf 386.1, 2000 features, 2048 keyframes,
+131,072 points) on the room rendered at that camera along the forward
+trajectory, and reports:
 
 * over one window of `--window` frames, host wall time per phase of the
   per-frame step (`frame`: the whole frame construction, of which `orb` is
@@ -96,6 +99,7 @@ def _device_time_us(evt) -> float:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sensor", choices=list(SENSORS), default="mono")
+    ap.add_argument("--preset", choices=["bench", "kitti"], default="bench")
     ap.add_argument("--frames", type=int, default=80)
     ap.add_argument("--window", type=int, default=20)
     ap.add_argument("--out", default=None)
@@ -104,14 +108,23 @@ def main(argv=None) -> dict:
         raise SystemExit("frame_profile needs a CUDA card")
 
     sensor = SENSORS[args.sensor]
-    cfg = config.SLAMConfig() if sensor == config.MONOCULAR else \
-        config.SLAMConfig(sensor=sensor, camera=config.CameraConfig(bf=40.0))
+    trajectory = "xyz"
+    if args.preset == "kitti":
+        if sensor != config.STEREO:
+            raise SystemExit("--preset kitti is a stereo preset")
+        cfg, trajectory = config.kitti_config(), "forward"
+    elif sensor == config.MONOCULAR:
+        cfg = config.SLAMConfig()
+    else:
+        cfg = config.SLAMConfig(sensor=sensor,
+                                camera=config.CameraConfig(bf=40.0))
     seq = synthetic.generate(cfg.camera, n_frames=args.frames, n_points=500,
-                             trajectory="xyz", seed=0)
+                             trajectory=trajectory, seed=0)
     if sensor == config.STEREO:
         second = synthetic.generate(
-            cfg.camera, n_frames=args.frames, n_points=4, trajectory="xyz",
-            seed=0, poses_override=synthetic.right_poses(
+            cfg.camera, n_frames=args.frames, n_points=4,
+            trajectory=trajectory, seed=0,
+            poses_override=synthetic.right_poses(
                 seq.poses_twc, cfg.camera.baseline)).images
     else:
         second = seq.depths
@@ -170,6 +183,7 @@ def main(argv=None) -> dict:
         "card": smi.stdout.strip().splitlines()[0] if smi.returncode == 0
         else None,
         "sensor": args.sensor,
+        "preset": args.preset,
         "frames_per_window": n,
         # window 1: phase timers (two synchronisations per phase)
         "wall_ms_per_frame": wall_s * 1e3 / n,

@@ -1,6 +1,7 @@
 """Synthetic sequence generator with exact ground truth (a numpy-only copy
-of orb_slam2_tpu/io/synthetic.py: the xyz and loop trajectories, and the
-right eye of a rectified stereo rig through `right_poses`).
+of orb_slam2_tpu/io/synthetic.py: the xyz, loop and forward trajectories,
+the right eye of a rectified stereo rig through `right_poses`, and the
+depth-warped right eye of `stereo_right_images`).
 
 The JAX package renders with OpenCV (cubic resize, Gaussian blur, bilinear
 remap with wrap-around).  This copy implements those three operations in
@@ -71,6 +72,22 @@ def xyz_trajectory(n_frames: int, amp=0.35, rot_amp=0.04) -> np.ndarray:
     return poses
 
 
+def forward_trajectory(n_frames: int, speed=0.08,
+                       yaw_rate=0.002) -> np.ndarray:
+    """KITTI-style: forward motion with slow yaw."""
+    poses = np.zeros((n_frames, 7))
+    q = np.array([1.0, 0, 0, 0])
+    pos = np.zeros(3)
+    for i in range(n_frames):
+        poses[i, :4] = q
+        poses[i, 4:] = pos
+        fwd = _quat_rot(q, np.array([0, 0, 1.0]))
+        pos = pos + speed * fwd
+        q = _quat_mul(q, _quat_from_axis_angle([0, 1, 0], yaw_rate))
+        q = q / np.linalg.norm(q)
+    return poses
+
+
 def loop_trajectory(n_frames: int, radius=1.2,
                     revolutions: float = 1.0) -> np.ndarray:
     """Closed circular path with a full yaw that follows the tangent."""
@@ -124,18 +141,23 @@ def _gaussian_blur_sigma1(img: np.ndarray) -> np.ndarray:
     return sum(rows[i:i + H, :] * k[i] for i in range(9)).astype(np.float32)
 
 
-def _remap_wrap(tex: np.ndarray, map_x: np.ndarray,
-                map_y: np.ndarray) -> np.ndarray:
-    """cv2.remap INTER_LINEAR, BORDER_WRAP: coordinates rounded to 1/32 px,
-    each of the four taps wrapped independently."""
+def _remap(tex: np.ndarray, map_x: np.ndarray, map_y: np.ndarray,
+           wrap: bool) -> np.ndarray:
+    """cv2.remap INTER_LINEAR: coordinates rounded to 1/32 px, each of the
+    four taps wrapped (BORDER_WRAP) or clamped (BORDER_REPLICATE)
+    independently."""
     th, tw = tex.shape
     X = np.rint(np.clip(map_x, -1e7, 1e7) * 32.0).astype(np.int64)
     Y = np.rint(np.clip(map_y, -1e7, 1e7) * 32.0).astype(np.int64)
     ix, iy = X >> 5, Y >> 5
     ax = (X & 31).astype(np.float32) / 32.0
     ay = (Y & 31).astype(np.float32) / 32.0
-    x0, x1 = ix % tw, (ix + 1) % tw
-    y0, y1 = iy % th, (iy + 1) % th
+    if wrap:
+        x0, x1 = ix % tw, (ix + 1) % tw
+        y0, y1 = iy % th, (iy + 1) % th
+    else:
+        x0, x1 = np.clip(ix, 0, tw - 1), np.clip(ix + 1, 0, tw - 1)
+        y0, y1 = np.clip(iy, 0, th - 1), np.clip(iy + 1, 0, th - 1)
     return ((tex[y0, x0] * (1 - ax) + tex[y0, x1] * ax) * (1 - ay) +
             (tex[y1, x0] * (1 - ax) + tex[y1, x1] * ax) * ay
             ).astype(np.float32)
@@ -185,12 +207,18 @@ def generate(cam: CameraConfig, n_frames: int = 120, n_points: int = 600,
         twc = xyz_trajectory(n_frames)
     elif trajectory == "loop":
         twc = loop_trajectory(n_frames, revolutions=loop_revolutions)
+    elif trajectory == "forward":
+        twc = forward_trajectory(n_frames)
     else:
         raise ValueError(f"unknown trajectory {trajectory!r}")
 
     zf, zn = depth_range[1], depth_range[0]
     ex = zn * (W / 2) / fx * 1.6
     ey = zn * (H / 2) / fy * 1.6
+    if trajectory == "forward":      # a corridor long enough to drive down
+        zf = 0.1 * n_frames + depth_range[1] * 2
+        ex *= 3.0
+        ey *= 3.0
     planes = [
         (np.array([0, 0, zf]), np.array([0, 0, -1.0]),
          np.array([1.0, 0, 0]), np.array([0, 1.0, 0])),
@@ -238,7 +266,7 @@ def generate(cam: CameraConfig, n_frames: int = 120, n_points: int = 600,
             th_, tw_ = tex.shape
             map_x = ((tu / span + 0.5) * (tw_ - 1)).astype(np.float32)
             map_y = ((tv / span + 0.5) * (th_ - 1)).astype(np.float32)
-            col = _remap_wrap(tex, map_x, map_y)
+            col = _remap(tex, map_x, map_y, wrap=True)
             closer = hit & (lam < zbuf)
             img = np.where(closer, col, img)
             zbuf = np.where(closer, lam, zbuf)
@@ -256,3 +284,20 @@ def generate(cam: CameraConfig, n_frames: int = 120, n_points: int = 600,
     timestamps = np.arange(n_frames) / cam.fps
     return SyntheticSequence(images=images, depths=depths, poses_twc=twc,
                              timestamps=timestamps, points=pts)
+
+
+def stereo_right_images(seq: SyntheticSequence, cam: CameraConfig,
+                        n_points: int = None) -> np.ndarray:
+    """Right-eye images warped from the left ones through their depth: the
+    right image at pixel u samples the left one at u + bf / z (bilinear,
+    replicated edges).  Approximate: occlusions are ignored.  For an exact
+    right eye, render `right_poses` with `generate`."""
+    H, W = seq.images.shape[1:]
+    u = np.arange(W)[None, :].repeat(H, 0).astype(np.float32)
+    map_y = np.arange(H)[:, None].repeat(W, 1).astype(np.float32)
+    right = np.zeros_like(seq.images)
+    for f in range(seq.images.shape[0]):
+        disp = cam.bf / np.maximum(seq.depths[f], 0.3)
+        right[f] = _remap(seq.images[f], (u + disp).astype(np.float32), map_y,
+                          wrap=False)
+    return right

@@ -1,5 +1,5 @@
 """SLAM session for a monocular, stereo or RGB-D camera (port of
-orb_slam2_tpu/pipeline/system.py, one frame per step).
+orb_slam2_tpu/pipeline/system.py).
 
 Per frame: build the frame (the sensor's frame function), track, decide
 on a keyframe, insert it (with its depth points for stereo/RGB-D and its
@@ -12,6 +12,16 @@ late, as in the JAX package, so their timing matches: reset on early loss,
 relocalisation when lost, loop detection on each new keyframe with Sim3
 verification and correction, and one chunk of the post-loop global BA
 between frames.
+
+With `cfg.frame_batch = B > 1` the session buffers B frames and runs them
+back to back; their HUD entries join the queue only after the batch, so
+the host reactions lag as behind the JAX package's scanned super-step.
+The per-frame arithmetic is that of B = 1.
+
+Localisation mode (`activate_localization_mode`) tracks against a frozen
+map: no keyframe is inserted, and a depth sensor's close unmatched
+keypoints of the last frame help as temporary VO points.  `save_map` /
+`load_map` checkpoint the map in the JAX package's npz format.
 
 The default vocabulary is the package's `data/vocab_default.npz`, as the
 JAX package loads its own; without a vocabulary file the session has no
@@ -33,14 +43,14 @@ from orb_slam2_tpu_torch.ba import local as ba_local
 from orb_slam2_tpu_torch.ba.async_gba import AsyncGBA
 from orb_slam2_tpu_torch.config import MONOCULAR, RGBD, STEREO, SLAMConfig
 from orb_slam2_tpu_torch.core import lie
-from orb_slam2_tpu_torch.map import ops
+from orb_slam2_tpu_torch.map import checkpoint, ops
 from orb_slam2_tpu_torch.map.state import MapState, empty_map
 from orb_slam2_tpu_torch.pipeline import frame as frame_mod
 from orb_slam2_tpu_torch.pipeline import init as init_mod
 from orb_slam2_tpu_torch.pipeline import loopclosing, mapping, reloc, tracking
 from orb_slam2_tpu_torch.pipeline.tracking import (HUD_N_KF, HUD_NEED_KF,
                                                    HUD_REF_KF, HUD_STATUS,
-                                                   NOT_INITIALIZED, OK,
+                                                   LOST, NOT_INITIALIZED, OK,
                                                    TrackState, record_traj)
 from orb_slam2_tpu_torch.place.vocab import Vocabulary, build_transform
 from orb_slam2_tpu_torch.solvers import twoview
@@ -120,25 +130,27 @@ def build_full_step(cfg: SLAMConfig, device=None, transform=None,
                     frame_fn=None):
     """Returns the per-frame step
 
-        (state, ts, imgs, frame_id, timestamp) -> (state, ts, frame, hud [6])
+        (state, ts, imgs, frame_id, timestamp, loc_only=False)
+            -> (state, ts, frame, hud [6])
 
     with `imgs` the tuple of the sensor's images: frame construction
     (`frame_fn`, by default the sensor's) -> tracking -> keyframe decision
     -> conditional insertion (with the keyframe's BoW vector when
     `transform`, the vocabulary transform, is given) -> one integration
-    stage (JAX `full_step`, system.py:203-232).  Runs on `device`: CUDA
-    unless the caller names one."""
+    stage (JAX `full_step`, system.py:203-232).  In localization mode
+    (`loc_only`) nothing is inserted.  Runs on `device`: CUDA unless the
+    caller names one."""
     frame_fn = frame_fn or build_frame_fn(cfg, device)
     track_step = tracking.build_track_step(cfg)
 
-    def full_step(state, ts, imgs, frame_id, timestamp):
+    def full_step(state, ts, imgs, frame_id, timestamp, loc_only=False):
         frame = frame_fn(*imgs, frame_id, timestamp)
-        state, ts, cur_pids, hud = track_step(state, ts, frame)
+        state, ts, cur_pids, hud = track_step(state, ts, frame, loc_only)
         # while the previous KF's triangulation/fusion stages are pending,
         # defer; once only BA/cull stages remain, a new insertion aborts
         # them (reference LocalMapping::InsertKeyFrame / mbAbortBA)
         busy_early = int(ts.map_kf) >= 0 and int(ts.map_stage) <= 1
-        need = bool(hud[HUD_NEED_KF]) and not busy_early
+        need = bool(hud[HUD_NEED_KF]) and not loc_only and not busy_early
         if need:
             state, ts = insert_kf(state, ts, frame, cur_pids, cfg)
             if transform is not None:
@@ -166,9 +178,6 @@ class SLAM:
     def __init__(self, cfg: SLAMConfig, device=None, seed: int = 0,
                  vocab_path: Optional[str] = None,
                  enable_loop_closing: bool = True):
-        if cfg.frame_batch > 1:
-            raise NotImplementedError("this port steps one frame at a time "
-                                      "(frame_batch = 1)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.state = empty_map(cfg, self.device)
@@ -181,10 +190,13 @@ class SLAM:
         self.gen.manual_seed(seed)
         self.enable_loop = enable_loop_closing
         self.last_loop_kf = -100
+        self.localization_only = False
         self.hud_lag = 8
         self._pending: deque = deque()       # (frame_id, hud, Frame)
         self._loop_pending: deque = deque()  # (frame_id, kf_id, ids, groups)
         self._reloc_pending = None           # (frame_id, reloc out, Frame)
+        self._batch: list = []               # (imgs, frame_id, timestamp)
+        self._last_big_change = 0
 
         # vocabulary: the reference loads ORBvoc.txt at startup
         # (System.cc:62); the package ships a trained default
@@ -228,19 +240,44 @@ class SLAM:
             frame = self._frame_fn(*imgs, self.frame_count, timestamp)
             self._initialize(frame)
             self.frame_count += 1
+        elif self.cfg.frame_batch > 1:
+            self._batch.append((imgs, self.frame_count, timestamp))
+            self.frame_count += 1
+            if len(self._batch) >= self.cfg.frame_batch:
+                self._dispatch_batch()
+            self._drain(self.hud_lag)
         else:
             self.state, self.ts, frame, hud = self._full_step(
-                self.state, self.ts, imgs, self.frame_count, timestamp)
+                self.state, self.ts, imgs, self.frame_count, timestamp,
+                self.localization_only)
             self._pending.append((self.frame_count, hud.cpu().numpy(), frame))
             self.frame_count += 1
             self._drain(self.hud_lag)
         self.timings.append(time.perf_counter() - t0)
+
+    def _dispatch_batch(self):
+        """Run the buffered frames through the per-frame step back to back
+        (the JAX package scans them in one program, system.py:237-281).  A
+        partial batch (flush) runs as it is: the JAX package pads it with
+        inactive slots, which change nothing.  The batch's HUD entries join
+        the queue only after it, in one host read."""
+        entries, self._batch = self._batch, []
+        done = []
+        for imgs, fid, t in entries:
+            self.state, self.ts, frame, hud = self._full_step(
+                self.state, self.ts, imgs, fid, t, self.localization_only)
+            done.append((fid, hud, frame))
+        huds = torch.stack([h for _, h, _ in done]).cpu().numpy()
+        for (fid, _, frame), hud in zip(done, huds):
+            self._pending.append((fid, hud, frame))
 
     # ------------------------------------------------------------------
     def flush(self):
         """Process pending HUD entries, finish the staged integration of
         the last keyframe and any running global BA.  Call before reading
         trajectories or counters."""
+        if self._batch:
+            self._dispatch_batch()
         self._drain(0)
         for _ in range(16):
             if int(self.ts.map_kf) < 0:
@@ -418,12 +455,21 @@ class SLAM:
             self.status = OK
         # on failure keep the stored first frame and retry with the next
 
+    def activate_localization_mode(self):
+        """Reference System::ActivateLocalizationMode (System.cc:270): track
+        against the frozen map, no keyframe insertion or mapping."""
+        self.localization_only = True
+
+    def deactivate_localization_mode(self):
+        self.localization_only = False
+
     def reset(self):
         """Reference System/Tracking::Reset."""
         self.state = empty_map(self.cfg, self.device)
         self.ts = tracking.empty_track_state(self.cfg, self.device)
         self.status = NOT_INITIALIZED
         self._gba.cancel()
+        self._batch.clear()
 
     # ------------------------------------------------------------------
     def _traj_arrays(self):
@@ -456,3 +502,86 @@ class SLAM:
                 qw, qx, qy, qz, tx, ty, tz = Twc
                 f.write(f"{t:.6f} {tx:.7f} {ty:.7f} {tz:.7f} "
                         f"{qx:.7f} {qy:.7f} {qz:.7f} {qw:.7f}\n")
+
+    def save_keyframe_trajectory_tum(self, path: str):
+        """Reference System::SaveKeyFrameTrajectoryTUM (System.cc:383-417):
+        one TUM-format line per live keyframe, ordered by id."""
+        self.flush()
+        valid = self.state.kf_valid.cpu().numpy()
+        tstamp = self.state.kf_timestamp.cpu().numpy()
+        Twc = lie.se3_inverse(self.state.kf_pose).cpu().numpy()
+        with open(path, "w") as f:
+            for k in np.nonzero(valid)[0]:
+                qw, qx, qy, qz, tx, ty, tz = Twc[k]
+                f.write(f"{tstamp[k]:.6f} {tx:.7f} {ty:.7f} {tz:.7f} "
+                        f"{qx:.7f} {qy:.7f} {qz:.7f} {qw:.7f}\n")
+
+    def save_trajectory_kitti(self, path: str):
+        """KITTI format: per-frame 3x4 row-major Twc matrix (reference
+        System::SaveTrajectoryKITTI, System.cc:419-472)."""
+        with open(path, "w") as f:
+            for _t, _Tcw, Twc in self._traj_arrays():
+                m = np.concatenate([_rot(Twc[:4]), Twc[4:7, None]], axis=1)
+                f.write(" ".join(f"{v:.6e}" for v in m.reshape(-1)) + "\n")
+
+    # ------------------------------------------------------------------
+    # map checkpoint / resume
+    def save_map(self, path: str):
+        """Checkpoint the full map to a compressed npz (the JAX package's
+        format, map/checkpoint.py)."""
+        self.flush()
+        checkpoint.save_map(self.state, path)
+
+    def load_map(self, path: str):
+        """Load a prebuilt map onto the session's device and arm tracking
+        against it: status LOST with keyframe 0 as the reference, so the
+        next frame tries the reference keyframe and then relocalisation
+        (pair with activate_localization_mode() for pure localization).
+        A map of at most 5 keyframes resets on the first lost frame, as
+        any young map does."""
+        self.state = checkpoint.load_map(path, self.device)
+        dev = self.device
+        self.ts = tracking.empty_track_state(self.cfg, dev)._replace(
+            status=torch.tensor(LOST, dtype=torch.int32, device=dev),
+            ref_kf=torch.tensor(0, dtype=torch.int32, device=dev))
+        self.status = LOST
+        self._pending.clear()
+        self._loop_pending.clear()
+        self._reloc_pending = None
+        self._gba.cancel()
+
+    # ------------------------------------------------------------------
+    # observability (reference System.cc:474-490)
+    def get_tracking_state(self) -> int:
+        """Reference System::GetTrackingState (the host's view, HUD-late)."""
+        return self.status
+
+    def get_tracked_map_points(self) -> np.ndarray:
+        """Per-keypoint map-point id of the last tracked frame (-1 = none),
+        the array form of System::GetTrackedMapPoints."""
+        self.flush()
+        return self.ts.last_pids.cpu().numpy()
+
+    def get_tracked_keypoints_un(self):
+        """Undistorted keypoints [N, 2] of the last tracked frame and their
+        validity mask [N] (System::GetTrackedKeyPointsUn)."""
+        self.flush()
+        return self.ts.last_uv.cpu().numpy(), self.ts.last_valid.cpu().numpy()
+
+    def map_changed(self) -> bool:
+        """Reference System::MapChanged (System.cc:282-293): whether the
+        big-change counter (loop correction, global BA) moved since the
+        last call."""
+        idx = int(self.state.big_change)
+        changed = idx != self._last_big_change
+        self._last_big_change = idx
+        return changed
+
+
+def _rot(q) -> np.ndarray:
+    """3x3 rotation of a unit quaternion (w, x, y, z)."""
+    w, x, y, z = q
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])

@@ -10,20 +10,24 @@ stored as flat arrays:
     word_id       [n_nodes] i32 (leaf index, -1 for internal)
     word_weight   [W] f32 IDF
 
-The system's default vocabulary is `data/vocab_default.npz`.  Reading the
-reference's ORBvoc text format and training a vocabulary are not part of
-this package.
+The system's default vocabulary is `data/vocab_default.npz`.
+`load_orbvoc_text` / `save_orbvoc_text` read and write the reference's
+DBoW2 text format (ORBvoc.txt), parsed by the native helper
+`native/voc_parser.cpp` (built with g++ at first use) or, as its plain
+version, in Python; `train_vocabulary` builds a tree from descriptors.
+These host-side parts are numpy, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
 
-from orb_slam2_tpu_torch import resolve_device
+from orb_slam2_tpu_torch import native_build, resolve_device
 from orb_slam2_tpu_torch.matching.hamming import pm1_from_packed
 
 
@@ -55,6 +59,223 @@ class Vocabulary:
                           n_words=int(z["n_words"]),
                           levels_up=int(z["levels_up"]))
 
+
+# ---------------------------------------------------------------------------
+# DBoW2 text format (ORBvoc.txt) interchange
+# ---------------------------------------------------------------------------
+
+def _load_orbvoc_native(path: str):
+    """(k, L, parents, leaves, descs, weights) through the native parser,
+    or None when its library is not available or the file does not parse."""
+    lib = native_build.load("voc_parser")
+    if lib is None:
+        return None
+    lp = ctypes.POINTER(ctypes.c_long)
+    lib.voc_text_stats.argtypes = [ctypes.c_char_p, lp, lp, lp]
+    lib.voc_text_stats.restype = ctypes.c_int
+    lib.voc_text_parse.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8),
+        ctypes.POINTER(ctypes.c_float), ctypes.c_long]
+    lib.voc_text_parse.restype = ctypes.c_long
+    k, L, n = ctypes.c_long(), ctypes.c_long(), ctypes.c_long()
+    if lib.voc_text_stats(path.encode(), ctypes.byref(k), ctypes.byref(L),
+                          ctypes.byref(n)) != 0 or n.value <= 0:
+        return None
+    cap = n.value
+    parents = np.empty(cap, np.int32)
+    leaves = np.empty(cap, np.uint8)
+    descs = np.empty((cap, 32), np.uint8)
+    weights = np.empty(cap, np.float32)
+    got = lib.voc_text_parse(
+        path.encode(),
+        parents.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        leaves.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        descs.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        weights.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), cap)
+    if got <= 0:
+        return None
+    return (k.value, L.value, parents[:got], leaves[:got].astype(bool),
+            descs[:got], weights[:got])
+
+
+def _load_orbvoc_python(path: str):
+    """The plain version of `_load_orbvoc_native`."""
+    with open(path) as f:
+        header = f.readline().split()
+        k, L = int(header[0]), int(header[1])
+        parents, leaves, descs, weights = [], [], [], []
+        for line in f:
+            parts = line.split()
+            if len(parts) < 35:
+                continue
+            parents.append(int(parts[0]))
+            leaves.append(int(parts[1]))
+            descs.append([int(x) for x in parts[2:34]])
+            weights.append(float(parts[34]))
+    return k, L, parents, leaves, descs, weights
+
+
+def load_orbvoc_text(path: str, levels_up: int = 4,
+                     truncate_depth: Optional[int] = None,
+                     native: Optional[bool] = None) -> Vocabulary:
+    """Load a DBoW2 text vocabulary (the reference's ORBvoc.txt; written by
+    TemplatedVocabulary::saveToTextFile, parsed at
+    TemplatedVocabulary.h:1338-1420):
+
+        k L scoring_type weighting_type
+        <parent_id> <is_leaf> <32 descriptor bytes> <weight>   (per node)
+
+    Node ids are implicit (1..n in file order, root = 0).  Word ids go to
+    leaves in increasing node-id order (createWords).
+
+    `truncate_depth` cuts the tree at a shallower depth, turning its nodes
+    into words (weight = the sum of their leaves' weights): the shipped
+    ORBvoc is k=10 L=6 (~1M words) and a dense BoW wants ~10-100k.
+
+    `native`: True parses with the native helper (raising when it cannot
+    be built), False with the plain Python parser, None with the native
+    one when available."""
+    parsed = _load_orbvoc_native(path) if native is not False else None
+    if native and parsed is None:
+        raise RuntimeError(f"the native ORBvoc parser could not read {path}")
+    if parsed is None:
+        parsed = _load_orbvoc_python(path)
+    k, L, parents, leaves, descs, weights = parsed
+    n = len(parents) + 1                      # + root
+    parents = np.asarray(parents, np.int32)
+    leaves = np.asarray(leaves, bool)
+    node_desc = np.zeros((n, 32), np.uint8)
+    node_desc[1:] = np.asarray(descs, np.uint8).reshape(-1, 32)
+    w_all = np.zeros((n,), np.float32)
+    w_all[1:] = np.asarray(weights, np.float32)
+
+    node_children = np.full((n, k), -1, np.int32)
+    child_count = np.zeros((n,), np.int32)
+    for i, p in enumerate(parents, start=1):
+        node_children[p, child_count[p]] = i
+        child_count[p] += 1
+
+    depth = L
+    is_leaf = np.zeros((n,), bool)
+    is_leaf[1:] = leaves
+    if truncate_depth is not None and truncate_depth < L:
+        dep = np.zeros((n,), np.int32)
+        for i, p in enumerate(parents, start=1):
+            dep[i] = dep[p] + 1
+        # each original leaf's weight goes up to its cut-depth ancestor
+        anc = np.arange(n)
+        for _ in range(L - truncate_depth):
+            deeper = dep[anc] > truncate_depth
+            anc = np.where(deeper, np.concatenate([[0], parents])[anc], anc)
+        agg_w = np.zeros((n,), np.float32)
+        np.add.at(agg_w, anc[is_leaf], w_all[is_leaf])
+        is_leaf = dep == truncate_depth
+        node_children[is_leaf] = -1
+        w_all = agg_w
+        depth = truncate_depth
+
+    word_id = np.full((n,), -1, np.int32)
+    leaf_ids = np.nonzero(is_leaf)[0]
+    word_id[leaf_ids] = np.arange(len(leaf_ids), dtype=np.int32)
+    return Vocabulary(k=k, depth=depth, node_children=node_children,
+                      node_desc=node_desc, word_id=word_id,
+                      word_weight=w_all[leaf_ids].astype(np.float32),
+                      n_words=len(leaf_ids),
+                      levels_up=levels_up if depth > levels_up else
+                      max(depth - 2, 0))
+
+
+def save_orbvoc_text(vocab: Vocabulary, path: str) -> None:
+    """Write the vocabulary in the DBoW2 text format (readable by the
+    reference's loadFromTextFile): scoring L1_NORM (0), weighting TF_IDF
+    (0)."""
+    n = vocab.node_children.shape[0]
+    parent = np.zeros((n,), np.int32)
+    for p in range(n):
+        for c in vocab.node_children[p]:
+            if c >= 0:
+                parent[c] = p
+    with open(path, "w") as f:
+        f.write(f"{vocab.k} {vocab.depth} 0 0\n")
+        for i in range(1, n):
+            leaf = 1 if vocab.word_id[i] >= 0 else 0
+            w = (vocab.word_weight[vocab.word_id[i]]
+                 if vocab.word_id[i] >= 0 else 0.0)
+            bytes_ = " ".join(str(int(b)) for b in vocab.node_desc[i])
+            f.write(f"{parent[i]} {leaf} {bytes_} {w}\n")
+
+
+# ---------------------------------------------------------------------------
+# training (host-side numpy; done once per deployment)
+# ---------------------------------------------------------------------------
+
+def _kmedians_binary(bits: np.ndarray, k: int, rng, iters: int = 8):
+    """Binary k-medians with bitwise-majority centroids (the FORB::meanValue
+    recipe, Thirdparty/DBoW2/FORB.cpp:40-76).  bits: [N, 256] uint8 0/1."""
+    n = bits.shape[0]
+    k = min(k, n)
+    centers = bits[rng.choice(n, k, replace=False)].astype(np.uint8)
+    assign = None
+    for _ in range(iters):
+        d = (bits[:, None, :] != centers[None, :, :]).sum(-1)   # [N, k]
+        assign = d.argmin(1)
+        new_centers = centers.copy()
+        for c in range(k):
+            sel = bits[assign == c]
+            if len(sel):
+                new_centers[c] = (sel.mean(0) >= 0.5).astype(np.uint8)
+        if (new_centers == centers).all():
+            break
+        centers = new_centers
+    return centers, assign
+
+
+def train_vocabulary(descriptors: np.ndarray, k: int = 10, depth: int = 4,
+                     seed: int = 0, levels_up: int = 2) -> Vocabulary:
+    """Build a k^depth tree from packed descriptors [N, 32] u8 (the same
+    draws from `seed` as the JAX package's)."""
+    rng = np.random.RandomState(seed)
+    bits = np.unpackbits(descriptors.astype(np.uint8), axis=-1)
+
+    max_nodes = sum(k ** i for i in range(depth + 1))
+    node_children = np.full((max_nodes, k), -1, np.int32)
+    node_desc = np.zeros((max_nodes, 32), np.uint8)
+    word_id = np.full((max_nodes,), -1, np.int32)
+    next_node, next_word = [1], [0]
+    word_counts = []
+
+    def build(node: int, subset: np.ndarray, level: int):
+        if level == depth or len(subset) <= 1:
+            word_id[node] = next_word[0]
+            next_word[0] += 1
+            word_counts.append(len(subset))
+            return
+        centers, assign = _kmedians_binary(bits[subset], k, rng)
+        for c in range(len(centers)):
+            child = next_node[0]
+            next_node[0] += 1
+            node_children[node, c] = child
+            node_desc[child] = np.packbits(centers[c], axis=-1)
+            build(child, subset[assign == c], level + 1)
+
+    build(0, np.arange(len(bits)), 0)
+    n_nodes, n_words = next_node[0], next_word[0]
+    # IDF weights (TemplatedVocabulary::setNodeWeights, TF_IDF):
+    # wi = log(N / Ni) over the training corpus as one document set
+    counts = np.asarray(word_counts, np.float64)
+    weight = np.log(max(len(bits), 1) / np.maximum(counts, 1.0)
+                    ).astype(np.float32)
+    return Vocabulary(k=k, depth=depth,
+                      node_children=node_children[:n_nodes],
+                      node_desc=node_desc[:n_nodes],
+                      word_id=word_id[:n_nodes], word_weight=weight,
+                      n_words=n_words, levels_up=levels_up)
+
+
+# ---------------------------------------------------------------------------
+# transform + scoring
+# ---------------------------------------------------------------------------
 
 def build_transform(vocab: Vocabulary, pad_to: Optional[int] = None,
                     device=None):

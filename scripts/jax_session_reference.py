@@ -1,0 +1,182 @@
+"""The JAX package on the session scenarios of the port's `chip_smoke.py`
+phases 11-14, on the CPU: the reference their thresholds are held against.
+
+    JAX_PLATFORMS=cpu python scripts/jax_session_reference.py \
+        [mono_loc] [kitti] [tum] [--kitti-trajectory xyz|forward] \
+        [--kitti-frames N]
+
+Each scenario runs on the very images the port's phase sees: the sequences
+are rendered by the port's numpy renderer and written to disk by
+`chip_smoke.py`'s own writers (its PNG encoder, directory layouts and
+settings files), then read back by the JAX package's loaders and CLI.  So
+this script imports the port's renderer and `chip_smoke.py` beside the JAX
+package.
+
+- mono_loc (phase 11): the bench mono sequence (default SLAMConfig, 120
+  frames, 500 points, xyz, seed 0) mapped over frames 0-45, the map saved,
+  loaded into a fresh session in localisation mode, frames 10-30 tracked;
+- kitti (phases 12-13): the room at the KITTI 00-02 camera in the KITTI
+  odometry layout, `tpu-slam run --dataset kitti --sensor stereo` with the
+  KITTI settings file (2048 keyframes, 131,072 points), then the saved map
+  loaded into a fresh session in localisation mode over part of it;
+- tum (phase 14): the bench's stereo sequence (bf 40, 60 frames) as a TUM
+  RGB-D directory, `tpu-slam run --dataset tum --sensor rgbd`, and the
+  keyframe trajectory file.
+
+Prints one dict per scenario: frames tracked, ATE, keyframes, map points,
+CPU wall time.
+"""
+
+import argparse
+import os
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+sys.path.insert(0, ROOT)
+
+import chip_smoke  # noqa: E402
+from orb_slam2_tpu import cli, config  # noqa: E402
+from orb_slam2_tpu.io import datasets, evaluate  # noqa: E402
+from orb_slam2_tpu.io.settings import load_settings  # noqa: E402
+from orb_slam2_tpu.pipeline import system  # noqa: E402
+from orb_slam2_tpu_torch import config as tconfig  # noqa: E402
+from orb_slam2_tpu_torch.io import synthetic as tsynthetic  # noqa: E402
+
+
+def _sessions():
+    """Record every SLAM session the JAX CLI makes."""
+    made = []
+    init = system.SLAM.__init__
+
+    def recording(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self)
+
+    system.SLAM.__init__ = recording
+    return made
+
+
+def _ate(slam, seq, align_scale):
+    est = slam.poses_twc()
+    ie, ig = evaluate.match_timestamps(slam.timestamps(), seq.timestamps)
+    return float(evaluate.ate_rmse(est[ie], seq.poses_twc[ig],
+                                   align_scale=align_scale)), len(ie)
+
+
+def mono_loc(tmp):
+    cfg = config.SLAMConfig()
+    seq = tsynthetic.generate(tconfig.SLAMConfig().camera,
+                              n_frames=chip_smoke.N_FRAMES, n_points=500,
+                              trajectory="xyz", seed=0)
+    t0 = time.perf_counter()
+    slam = system.SLAM(cfg)
+    for f in range(chip_smoke.LOC_MAP_FRAMES):
+        slam.track_mono(seq.images[f], seq.timestamps[f])
+    path = os.path.join(tmp, "mono_map.npz")
+    slam.save_map(path)
+    n_kf, n_mp = int(slam.state.n_kf), int(slam.state.n_mp)
+    loc = system.SLAM(cfg)
+    loc.load_map(path)
+    loc.activate_localization_mode()
+    a, b = chip_smoke.LOC_FRAMES
+    for f in range(a, b):
+        loc.track_mono(seq.images[f], seq.timestamps[f])
+    loc.flush()
+    ate, n = _ate(loc, seq, True)
+    return dict(scenario="mono_loc", map_keyframes=n_kf, map_points=n_mp,
+                status=loc.status, keyframes_after=int(loc.state.n_kf),
+                points_after=int(loc.state.n_mp), tracked=n,
+                frames=b - a, ate_m=ate, cpu_wall_s=time.perf_counter() - t0)
+
+
+def kitti(tmp, trajectory, n_frames):
+    cam = tconfig.kitti_config().camera
+    seq, right = chip_smoke.kitti_sequence(tsynthetic, cam, n_frames,
+                                           trajectory)
+    root = os.path.join(tmp, "kitti_00")
+    chip_smoke.write_kitti_dir(root, seq, right)
+    yaml = os.path.join(tmp, "kitti.yaml")
+    with open(yaml, "w") as f:
+        f.write(chip_smoke.KITTI_SETTINGS)
+    out = os.path.join(tmp, "kitti_traj.txt")
+    made = _sessions()
+    t0 = time.perf_counter()
+    cli.main(["run", "--dataset", "kitti", "--sensor", "stereo", "--path",
+              root, "--settings", yaml, "--output", out])
+    wall = time.perf_counter() - t0
+    slam = made[-1]
+    est = chip_smoke.read_kitti_positions(out)
+    ie, ig = evaluate.match_timestamps(slam.timestamps(), seq.timestamps)
+    ate = float(evaluate.ate_rmse(est[ie], seq.poses_twc[ig],
+                                  align_scale=False))
+    kv = np.asarray(slam.state.kf_valid)
+    res = dict(scenario="kitti", trajectory=trajectory, frames=n_frames,
+               tracked=len(ie), ate_m=ate, keyframes=int(slam.state.n_kf),
+               keyframe_frames=np.asarray(slam.state.kf_frame_id)[kv]
+               .tolist(), map_points=int(slam.state.n_mp), cpu_wall_s=wall)
+    # phase 13: localisation on the saved map
+    path = os.path.join(tmp, "kitti_map.npz")
+    slam.save_map(path)
+    cfg = load_settings(yaml, config.STEREO)
+    loc = system.SLAM(cfg)
+    loc.load_map(path)
+    loc.activate_localization_mode()
+    a, b = chip_smoke.KITTI_LOC_FRAMES
+    items = datasets.load_kitti_stereo(root)[a:b]
+    for left, rgt, t in datasets.SequenceReader(items, "stereo"):
+        loc.track_stereo(left, rgt, t)
+    loc.flush()
+    ate_l, n_l = _ate(loc, seq, False)
+    res.update(loc_status=loc.status, loc_tracked=n_l, loc_frames=b - a,
+               loc_ate_m=ate_l, loc_keyframes=int(loc.state.n_kf))
+    return res
+
+
+def tum(tmp):
+    cfg = tconfig.SLAMConfig(sensor=tconfig.RGBD,
+                             camera=tconfig.CameraConfig(bf=40.0))
+    seq = tsynthetic.generate(cfg.camera, n_frames=chip_smoke.STEREO_FRAMES,
+                              n_points=500, trajectory="xyz", seed=0)
+    root = os.path.join(tmp, "tum_rgbd")
+    chip_smoke.write_tum_rgbd_dir(root, seq, cfg.camera.depth_map_factor)
+    yaml = os.path.join(tmp, "tum.yaml")
+    with open(yaml, "w") as f:
+        f.write(chip_smoke.tum_settings(cfg.camera))
+    out = os.path.join(tmp, "tum_traj.txt")
+    made = _sessions()
+    t0 = time.perf_counter()
+    cli.main(["run", "--dataset", "tum", "--sensor", "rgbd", "--path", root,
+              "--settings", yaml, "--output", out])
+    wall = time.perf_counter() - t0
+    slam = made[-1]
+    ts, est = chip_smoke.read_tum_positions(out)
+    ie, ig = evaluate.match_timestamps(ts, seq.timestamps)
+    kf_path = os.path.join(tmp, "tum_kf.txt")
+    slam.save_keyframe_trajectory_tum(kf_path)
+    return dict(scenario="tum", frames=len(seq.images), tracked=len(ie),
+                ate_m=float(evaluate.ate_rmse(est[ie], seq.poses_twc[ig],
+                                              align_scale=False)),
+                keyframes=int(slam.state.n_kf),
+                keyframe_lines=len(np.loadtxt(kf_path, ndmin=2)),
+                map_points=int(slam.state.n_mp), cpu_wall_s=wall)
+
+
+if __name__ == "__main__":
+    ap = argparse.ArgumentParser()
+    ap.add_argument("which", nargs="*", default=["mono_loc", "kitti", "tum"])
+    ap.add_argument("--kitti-trajectory", default=chip_smoke.KITTI_TRAJECTORY,
+                    choices=["xyz", "forward"])
+    ap.add_argument("--kitti-frames", type=int,
+                    default=chip_smoke.KITTI_FRAMES)
+    args = ap.parse_args()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="_smoke_") as tmp:
+        for which in args.which:
+            if which == "kitti":
+                res = kitti(tmp, args.kitti_trajectory, args.kitti_frames)
+            else:
+                res = {"mono_loc": mono_loc, "tum": tum}[which](tmp)
+            print(res, flush=True)

@@ -47,11 +47,12 @@ def test_fast_kernel_matches_plain_on_card(shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("H,W,n_images", [(480, 640, 1), (240, 320, 1),
-                                          (480, 640, 2)])
+                                          (480, 640, 2), (376, 1241, 2)])
 def test_fast_atlas_kernel_matches_plain_on_card(H, W, n_images):
     """All 8 levels of n_images images in one launch, bit-exact against the
     plain version level by level; seeded values also outside the levels,
-    which neither may read."""
+    which neither may read.  376x1241 is the KITTI stereo pair: an odd
+    width, no level a multiple of the tile."""
     _card()
     levels = pyramid.level_shapes(H, W, 8, 1.2)
     rng = np.random.RandomState(H + n_images)
@@ -179,13 +180,14 @@ def _pose_problem(seed, n, stereo_frac, bf=40.0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,stereo_frac", [(1024, 0.0), (1024, 1 / 3),
                                            (1024, 1.0), (64, 0.0),
-                                           (8192, 0.0)])
+                                           (8192, 0.0), (2048, 0.75)])
 def test_pose_lm_kernel_matches_plain_on_card(n, stereo_frac):
     """Pose within 1e-4 (float32 sums in another order), inlier masks equal
     on >= 99% of points and counts within 2 (a chi^2 at its threshold may
     flip); `pose_optimize` on CUDA tensors launches the kernel once.
     N = 8192 is the most a launch takes (8 points a thread); stereo_frac
-    1.0 makes every row stereo, as on the stereo path."""
+    1.0 makes every row stereo, as on the stereo path; N = 2048 is the
+    KITTI preset's keypoint capacity."""
     _card()
     p = _pose_problem(n, n, stereo_frac)
     before, calls = pose_lm_cuda.launches, pose_opt.cuda_calls

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no file of `orb_slam2_tpu_torch/` and
 neither `chip_smoke.py` imports `jax` or the JAX package `orb_slam2_tpu`,
-and importing the port in a fresh interpreter loads neither."""
+nor any of OpenCV, PIL, PyYAML or matplotlib (absent where the card is),
+and importing the port in a fresh interpreter loads none of them."""
 
 import ast
 import os
@@ -20,14 +21,19 @@ def _sources():
     return sorted(out)
 
 
+FORBIDDEN = ("jax", "jaxlib", "orb_slam2_tpu", "cv2", "PIL", "yaml",
+             "matplotlib")
+
+
 def _forbidden(name: str) -> bool:
-    top = name.split(".")[0]
-    return top == "jax" or top == "jaxlib" or top == "orb_slam2_tpu"
+    return name.split(".")[0] in FORBIDDEN
 
 
 @pytest.mark.parametrize("path", _sources(),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_source_imports_no_jax(path):
+    """No import of JAX, the JAX package, OpenCV, PIL, PyYAML or
+    matplotlib."""
     tree = ast.parse(open(path).read(), path)
     bad = []
     for node in ast.walk(tree):
@@ -48,14 +54,15 @@ def test_source_imports_no_jax(path):
 def test_importing_the_port_loads_no_jax():
     mods = ["orb_slam2_tpu_torch." + m for m in (
         "convert", "pipeline.system", "frontend.fast_cuda", "io.synthetic",
-        "io.evaluate", "place.vocab", "place.database", "pipeline.reloc",
-        "pipeline.loopclosing", "ba.posegraph", "ba.async_gba",
-        "solvers.epnp", "solvers.sim3", "solvers.pose_lm_cuda",
-        "cuda_build")]
+        "io.evaluate", "io.settings", "io.datasets", "io.png",
+        "map.checkpoint", "cli", "native_build", "place.vocab",
+        "place.database", "pipeline.reloc", "pipeline.loopclosing",
+        "ba.posegraph", "ba.async_gba", "solvers.epnp", "solvers.sim3",
+        "solvers.pose_lm_cuda", "cuda_build")]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
             "import chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'orb_slam2_tpu'))\n"
+            f"{FORBIDDEN!r})\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT

@@ -16,7 +16,9 @@ the pose LM.  Tolerances and their reasons stand in each test.
     each keyframe-integration stage; `create_depth_points`.
 (c) The whole slice: a 30-frame port run per sensor tracks >= 90% of the
     frames under test_e2e's metric-ATE gates (0.06 m stereo, 0.02 m
-    RGB-D); `SLAM(cfg)` without a device runs on CUDA or raises.
+    RGB-D); `SLAM(cfg)` without a device runs on CUDA or raises.  The
+    frame-batched session is held against JAX's in
+    tests/test_torch_session.py.
 """
 
 import dataclasses
@@ -565,9 +567,3 @@ def test_slam_runs_on_cuda_by_default(name):
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             tsystem.SLAM(cfg)
-
-
-def test_frame_batched_step_is_not_ported():
-    cfg = small_cfg(tconfig, STEREO).replace(frame_batch=4)
-    with pytest.raises(NotImplementedError, match="frame_batch"):
-        tsystem.SLAM(cfg, device="cpu")
