@@ -664,36 +664,22 @@ def phase_path(name, SLAM, cfg, seq, evaluate, counters, tracked_min,
 def phase_depth_path(name, SLAM, cfg, seq, right, evaluate, counters,
                      mapping, pose_opt):
     """Phase 9 / 10: a stereo or RGB-D run at the bench's configuration.
-    Also counts the points `create_depth_points` made at each insertion and
-    records every pose LM's problem; returns (launches, the recorded
-    problem with the most stereo rows)."""
-    made, recorded = [], []
-    depth_points, optimize = mapping.create_depth_points, \
-        pose_opt.pose_optimize
-
-    def counted_depth_points(state, kf_id, cfg_):
-        out = depth_points(state, kf_id, cfg_)
-        made.append((kf_id, out.next_mp - state.next_mp))   # no host read
-        return out
-
-    def recording_optimize(*args):
-        recorded.append(args)
-        return optimize(*args)
-
-    mapping.create_depth_points = counted_depth_points
-    pose_opt.pose_optimize = recording_optimize
+    Also reads the points `create_depth_points` made at the insertions
+    (every one after the first keyframe) and records every pose LM's
+    problem; returns (launches, the recorded problem with the most stereo
+    rows)."""
+    recorded = pose_opt.recorded = []
+    mapping.depth_points = 0
     try:
         slam, launches = phase_path(name, SLAM, cfg, seq, evaluate, counters,
                                     DEPTH_TRACKED_MIN_FRAC,
                                     DEPTH_ATE_GATE_M[name.split()[0]], right)
     finally:
-        mapping.create_depth_points = depth_points
-        pose_opt.pose_optimize = optimize
-    made = [(k, int(m)) for k, m in made]
-    print(f"  {name}: create_depth_points at {len(made)} insertions made "
-          f"{[m for _, m in made]} points", flush=True)
-    check(any(k > 0 and m > 0 for k, m in made),
-          f"{name}: no keyframe after the first made depth points")
+        pose_opt.recorded = None
+    made = int(mapping.depth_points)
+    print(f"  {name}: create_depth_points made {made} points at the "
+          f"insertions after the first keyframe", flush=True)
+    check(made > 0, f"{name}: no keyframe after the first made depth points")
     n_stereo = [int((a[5] & a[6]).sum()) for a in recorded]
     best = recorded[int(np.argmax(n_stereo))]
     return slam, launches, best
@@ -831,8 +817,9 @@ def phase_mono_loc(SLAM, cfg, seq, evaluate, counters, tmp):
 def phase_kitti(port_cli, mapping, tracking, pose_opt, evaluate, counters,
                 kseq, kright, tmp):
     """Phase 12: the KITTI preset through the CLI on a KITTI-layout
-    directory.  Counts the frames need_close fired on and the close points
-    create_depth_points made; records the pose LMs' problems."""
+    directory.  Reads the counts of the frames need_close fired on and of
+    the close points create_depth_points made; records the pose LMs'
+    problems."""
     root = os.path.join(tmp, "kitti_00")
     t0 = time.perf_counter()
     write_kitti_dir(root, kseq, kright)
@@ -841,30 +828,9 @@ def phase_kitti(port_cli, mapping, tracking, pose_opt, evaluate, counters,
         f.write(KITTI_SETTINGS)
     print(f"KITTI directory: {2 * len(kseq.images)} PNGs of 1241x376 "
           f"written in {time.perf_counter() - t0:.2f} s", flush=True)
-    need_close, close_made, recorded = [], [], []
-    need_kf, depth_points, optimize = tracking.need_new_keyframe, \
-        mapping.create_depth_points, pose_opt.pose_optimize
-
-    def counted_need(state, ts, frame, cur_pids, n_inl, ok, cfg):
-        out = need_kf(state, ts, frame, cur_pids, n_inl, ok, cfg)
-        need_close.append(out[1])
-        return out
-
-    def counted_depth_points(state, kf_id, cfg):
-        out = depth_points(state, kf_id, cfg)
-        thd = cfg.camera.th_depth * cfg.camera.baseline
-        d = out.kf_depth[kf_id]
-        made = (state.kf_obs[kf_id] < 0) & (out.kf_obs[kf_id] >= 0)
-        close_made.append((made & (d > 0) & (d < thd)).sum())
-        return out
-
-    def recording_optimize(*args):
-        recorded.append(args)
-        return optimize(*args)
-
-    tracking.need_new_keyframe = counted_need
-    mapping.create_depth_points = counted_depth_points
-    pose_opt.pose_optimize = recording_optimize
+    recorded = pose_opt.recorded = []
+    tracking.need_close_frames = 0
+    mapping.depth_points = mapping.close_depth_points = 0
     out = os.path.join(tmp, "kitti_traj.txt")
     torch.cuda.reset_peak_memory_stats()
     _zero(counters)
@@ -875,9 +841,7 @@ def phase_kitti(port_cli, mapping, tracking, pose_opt, evaluate, counters,
                               "--output", out])
         wall = time.perf_counter() - t0
     finally:
-        tracking.need_new_keyframe = need_kf
-        mapping.create_depth_points = depth_points
-        pose_opt.pose_optimize = optimize
+        pose_opt.recorded = None
     launches = _read(counters)
     peak = torch.cuda.max_memory_allocated()
     est = read_kitti_positions(out)
@@ -885,8 +849,8 @@ def phase_kitti(port_cli, mapping, tracking, pose_opt, evaluate, counters,
     check(len(est) == len(ie), "KITTI file and session disagree")
     ate = evaluate.ate_rmse(est[ie], kseq.poses_twc[ig], align_scale=False)
     n_frames = len(kseq.images)
-    n_close = int(sum(int(x) for x in need_close))
-    made = [int(x) for x in close_made]
+    n_close = int(tracking.need_close_frames)
+    made = int(mapping.close_depth_points)
     n_kf = int(slam.state.n_kf)
     print(f"KITTI preset via the CLI ({KITTI_TRAJECTORY}, {n_frames} "
           f"frames, 1241x376, 2000 features, 2048 keyframes x 2048 "
@@ -894,8 +858,8 @@ def phase_kitti(port_cli, mapping, tracking, pose_opt, evaluate, counters,
           f"{n_frames}, metric ATE {ate:.6f} m, keyframes {n_kf}, map "
           f"points {int(slam.state.n_mp)} (JAX on the CPU: ATE "
           f"{JAX_KITTI[0]} m, {JAX_KITTI[1]} keyframes); need_close fired "
-          f"on {n_close} of {len(need_close)} tracked frames; close depth "
-          f"points made {made} at {len(made)} insertions; "
+          f"on {n_close} frames; close depth points made {made} (of "
+          f"{int(mapping.depth_points)} depth points); "
           f"{_frame_ms(slam)}; launches {launches} "
           f"({launches['fast_nms'] / n_frames:.2f} FAST, "
           f"{launches['pose_lm'] / n_frames:.2f} pose LM a frame); peak "
@@ -906,7 +870,7 @@ def phase_kitti(port_cli, mapping, tracking, pose_opt, evaluate, counters,
           f"KITTI: ATE {ate} m (JAX {JAX_KITTI[0]})")
     check(abs(n_kf - JAX_KITTI[1]) <= JAX_KF_MARGIN,
           f"KITTI: {n_kf} keyframes (JAX {JAX_KITTI[1]})")
-    check(sum(made) > 0, "KITTI: no close depth point was made")
+    check(made > 0, "KITTI: no close depth point was made")
     _check_launched("KITTI", counters, launches, n_frames)
     n_valid = [int(a[5].sum()) for a in recorded]
     best = recorded[int(np.argmax(n_valid))]
@@ -924,45 +888,26 @@ def phase_kitti_loc(SLAM, datasets, tracking, counters, kslam, root,
     loc.load_map(path)
     loc.activate_localization_mode()
     n_kf, n_mp = int(loc.state.n_kf), int(loc.state.n_mp)
-    vo_cand, vo_used = [], []
-    motion, vo_mask = tracking.track_with_motion_model, tracking.vo_point_mask
-
-    def counted_mask(ts, pids, cfg_, loc_only):
-        out = vo_mask(ts, pids, cfg_, loc_only)
-        vo_cand.append(out.sum())
-        return out
-
-    def counted_motion(state, ts, frame, cfg_, loc_only=False):
-        pids, opt, ok = motion(state, ts, frame, cfg_, loc_only)
-        vo_used.append((opt.inliers & (pids < 0)).sum())
-        return pids, opt, ok
-
-    tracking.track_with_motion_model = counted_motion
-    tracking.vo_point_mask = counted_mask
+    tracking.vo_candidates = tracking.vo_inliers = 0
     a, b = KITTI_LOC_FRAMES
     _zero(counters)
-    try:
-        reader = datasets.SequenceReader(
-            datasets.load_kitti_stereo(root)[a:b], "stereo")
-        for left, right, t in reader:
-            loc.track_stereo(left, right, t)
-        loc.flush()
-    finally:
-        tracking.track_with_motion_model = motion
-        tracking.vo_point_mask = vo_mask
+    reader = datasets.SequenceReader(
+        datasets.load_kitti_stereo(root)[a:b], "stereo")
+    for left, right, t in reader:
+        loc.track_stereo(left, right, t)
+    loc.flush()
     launches = _read(counters)
-    cand = [int(x) for x in vo_cand]
-    used = [int(x) for x in vo_used]
+    cand, used = int(tracking.vo_candidates), int(tracking.vo_inliers)
     ate, n = ate_of(loc, kseq, evaluate, align_scale=False)
     print(f"KITTI stereo localisation: frames {a}-{b - 1} on the saved map "
           f"({n_kf} keyframes): tracked {n}/{b - a}, status {loc.status}, "
           f"metric ATE {ate:.6f} m, keyframes {int(loc.state.n_kf)}; VO "
-          f"points: candidates {cand}, used as pose-LM inliers {used} "
-          f"(total {sum(used)}); launches {launches}", flush=True)
+          f"points: {cand} candidates, {used} used as pose-LM inliers; "
+          f"launches {launches}", flush=True)
     check(loc.status == 2, f"KITTI localisation: status {loc.status}")
     check(int(loc.state.n_kf) == n_kf and int(loc.state.n_mp) == n_mp,
           "KITTI localisation changed the map")
-    check(sum(used) > 0, "KITTI localisation used no VO point")
+    check(used > 0, "KITTI localisation used no VO point")
     _check_launched("KITTI localisation", counters, launches, b - a)
     return launches
 
@@ -1004,17 +949,16 @@ def phase_tum(port_cli, evaluate, counters, seq, cam, tmp):
     return launches
 
 
-def phase_batch(SLAM, loopclosing, cfg, seq, counters):
+def phase_batch(SLAM, cfg, seq, counters):
     """Phase 15: the bench mono sequence's first BATCH_FRAMES frames with
     frame_batch = BATCH against frame_batch = 1: bit-identical trajectory
     logs up to the first host reaction that changed the state."""
     runs = {}
-    correct = loopclosing.correct
     for fb in (1, BATCH):
         slam = SLAM(cfg.replace(frame_batch=fb), device="cuda")
         events = []
-        reset, merge, check_reloc = slam.reset, slam._gba.merge, \
-            slam._check_reloc
+        reset, merge, check_reloc, check_loops = slam.reset, \
+            slam._gba.merge, slam._check_reloc, slam._check_loops
 
         def on_reset(slam=slam, reset=reset, events=events):
             events.append((slam.frame_count, "reset"))
@@ -1031,18 +975,17 @@ def phase_batch(SLAM, loopclosing, cfg, seq, counters):
             if slam.ts is not ts:
                 events.append((slam.frame_count, "relocalised"))
 
-        def on_correct(*a, slam=slam, events=events):
-            events.append((slam.frame_count, "loop corrected"))
-            return correct(*a)
+        def on_loops(force=False, slam=slam, events=events,
+                     check_loops=check_loops):
+            kf = slam.last_loop_kf
+            check_loops(force)
+            if slam.last_loop_kf != kf:
+                events.append((slam.frame_count, "loop corrected"))
 
-        slam.reset, slam._gba.merge, slam._check_reloc = on_reset, \
-            on_merge, on_reloc
-        loopclosing.correct = on_correct
+        slam.reset, slam._gba.merge, slam._check_reloc, slam._check_loops = \
+            on_reset, on_merge, on_reloc, on_loops
         _zero(counters)
-        try:
-            run_slam(SLAM, cfg, seq, BATCH_FRAMES, slam=slam)
-        finally:
-            loopclosing.correct = correct
+        run_slam(SLAM, cfg, seq, BATCH_FRAMES, slam=slam)
         runs[fb] = (slam, events, _read(counters))
     (a, ev_a, launches), (b, ev_b, _) = runs[BATCH], runs[1]
     ta = a.ts.traj[:BATCH_FRAMES].cpu().numpy()
@@ -1076,7 +1019,7 @@ def main() -> int:
         from orb_slam2_tpu_torch.frontend import fast_cuda, pyramid
         from orb_slam2_tpu_torch.frontend.atlas import build_atlas_extractor
         from orb_slam2_tpu_torch.io import datasets, evaluate, synthetic
-        from orb_slam2_tpu_torch.pipeline import loopclosing, mapping, tracking
+        from orb_slam2_tpu_torch.pipeline import mapping, tracking
         from orb_slam2_tpu_torch.pipeline.system import SLAM
         from orb_slam2_tpu_torch.solvers import pose_lm_cuda, pose_opt
     except ImportError as e:
@@ -1257,8 +1200,7 @@ def main() -> int:
             del kslam
             launches["tum_cli"] = phase_tum(port_cli, evaluate, counters,
                                             st_seq, rgbd_cfg.camera, tmp)
-        launches["batch"] = phase_batch(SLAM, loopclosing, cfg, seq,
-                                        counters)
+        launches["batch"] = phase_batch(SLAM, cfg, seq, counters)
 
         # 3 (continued). FAST on the KITTI stereo pair's real atlas
         kpair = torch.stack([torch.as_tensor(kseq.images[0]),

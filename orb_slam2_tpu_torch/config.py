@@ -270,11 +270,11 @@ class SLAMConfig:
     """Top-level engine configuration."""
 
     sensor: int = MONOCULAR
-    # Frames tracked per device program: >1 runs a lax.scan "super-step"
-    # over a small frame batch in ONE jit, amortizing per-program dispatch
-    # and runtime overhead (a TPU-native addition — the per-frame semantics
-    # are identical; host reactions lag up to `frame_batch` extra frames,
-    # within the async HUD lag already present).
+    # Frames buffered per dispatch: >1 runs a small frame batch back to
+    # back and reads its HUD entries once (the JAX package scans the batch
+    # in one program) — the per-frame semantics are identical; host
+    # reactions lag up to `frame_batch` extra frames, within the async HUD
+    # lag already present.
     frame_batch: int = 1
     camera: CameraConfig = dataclasses.field(default_factory=CameraConfig)
     orb: ORBConfig = dataclasses.field(default_factory=ORBConfig)

@@ -7,9 +7,10 @@ Reads what the datasets the reference runs on hold: 8-bit gray images,
 16-bit colour files raise ValueError.
 
 Unfiltering (PNG filter types 0-4) runs in the native helper
-`native/png_unfilter.cpp` when it builds (g++ at first use), else in
-`unfilter_plain`, its plain version (rows in numpy, the pixels of Average
-and Paeth rows one at a time: seconds for a 640x480 image).
+`native/png_unfilter.cpp` (built with g++ at first use), or, where no C++
+compiler is present, in `unfilter_plain`, its plain version (rows in
+numpy, the pixels of Average and Paeth rows one at a time: seconds for a
+640x480 image).
 """
 
 from __future__ import annotations
@@ -91,7 +92,8 @@ def unfilter_plain(raw: np.ndarray, height: int, stride: int,
 
 
 def _native():
-    """The native helper with its C signature declared, or None."""
+    """The native helper with its C signature declared, or None when no
+    compiler is present."""
     lib = native_build.load("png_unfilter")
     if lib is not None:
         u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -103,7 +105,7 @@ def _native():
 
 def unfilter(raw: np.ndarray, height: int, stride: int,
              bpp: int) -> np.ndarray:
-    """`unfilter_plain` through the native helper when it is available."""
+    """`unfilter_plain` through the native helper where it can be built."""
     lib = _native()
     if lib is None:
         return unfilter_plain(raw, height, stride, bpp)

@@ -4,8 +4,9 @@ The helpers (the ORBvoc text parser, PNG unfiltering) expose plain C
 functions for ctypes.  They compile with g++ on first use into the
 gitignored `_build/`, named by a hash of the source and the flags, so a
 changed source rebuilds and an unchanged one is reused; no binary is kept
-in the repository.  `load` returns None when no compiler is present or the
-build fails, and the callers then take their plain Python versions.
+in the repository.  `load` returns None only when no compiler is present
+(saying so once on stderr), and the callers then take their plain Python
+versions; a compiler that is present and fails raises.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 from typing import Dict, Optional
 
@@ -26,14 +28,19 @@ _libs: Dict[str, Optional[ctypes.CDLL]] = {}
 _lock = threading.Lock()
 
 
+class NoCompiler(RuntimeError):
+    """No C++ compiler: neither `CXX` nor g++ on PATH."""
+
+
 def build(name: str) -> str:
     """Compile `native/<name>.cpp` into `_build/lib<name>_<hash>.so` unless
-    that exists; return its path.  Raises RuntimeError when g++ fails or is
-    absent."""
+    that exists; return its path.  Raises NoCompiler when there is no
+    compiler and RuntimeError when it fails."""
     src = os.path.join(PKG, "native", f"{name}.cpp")
     cxx = os.environ.get("CXX") or shutil.which("g++")
     if cxx is None:
-        raise RuntimeError("no C++ compiler (g++) on PATH")
+        raise NoCompiler("no C++ compiler: CXX is unset and g++ is not on "
+                         "PATH")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(CXX_FLAGS).encode()
                                 ).hexdigest()[:16]
@@ -51,12 +58,16 @@ def build(name: str) -> str:
 
 
 def load(name: str) -> Optional[ctypes.CDLL]:
-    """The helper's library, built on first use; None when it cannot be
-    built or loaded."""
+    """The helper's library, built on first use.  None when there is no
+    compiler, with a warning on stderr the first time; a failed build or
+    load raises."""
     with _lock:
         if name not in _libs:
             try:
                 _libs[name] = ctypes.CDLL(build(name))
-            except (RuntimeError, OSError, subprocess.SubprocessError):
+            except NoCompiler as e:
+                print(f"warning: {e}; the plain Python version of "
+                      f"native/{name}.cpp runs instead, many times slower",
+                      file=sys.stderr)
                 _libs[name] = None
         return _libs[name]

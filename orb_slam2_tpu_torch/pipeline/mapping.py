@@ -26,6 +26,11 @@ from orb_slam2_tpu_torch.pipeline.init import pids_mask_from
 from orb_slam2_tpu_torch.pipeline.tracking import predict_scale
 from orb_slam2_tpu_torch.solvers import triangulate as tri
 
+# Points `create_depth_points` made, and those of them under the close
+# threshold, summed on the device beside the call; set to 0 to restart.
+depth_points = 0
+close_depth_points = 0
+
 
 def _camera_center(T):
     return -lie.quat_rotate(lie.quat_conj(lie.se3_q(T)), lie.se3_t(T))
@@ -169,6 +174,7 @@ def create_depth_points(state: MapState, kf_id: int,
     with depth, every close one and the nearest far ones until
     `close_depth_n` (reference Tracking::CreateNewKeyFrame,
     Tracking.cc:1078-1136)."""
+    global depth_points, close_depth_points
     dev = state.kf_pose.device
     K = camera.intrinsics(cfg.camera, dev)
     N = state.kf_obs.shape[1]
@@ -188,6 +194,9 @@ def create_depth_points(state: MapState, kf_id: int,
     state, pids = ops.alloc_points(state, want, pw, state.kf_desc[kf_id],
                                    kf_id)
     state = ops.add_obs(state, kf_id, torch.arange(N, device=dev), pids)
+    made = free & (state.kf_obs[kf_id] >= 0)
+    depth_points = depth_points + made.sum()
+    close_depth_points = close_depth_points + (made & (depth < th_depth)).sum()
     state = ops.update_point_attributes(
         state, pids_mask_from(pids, state.mp_pos.shape[0]),
         cfg.orb.scale_factor, cfg.orb.n_levels)

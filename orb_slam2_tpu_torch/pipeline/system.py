@@ -13,10 +13,11 @@ relocalisation when lost, loop detection on each new keyframe with Sim3
 verification and correction, and one chunk of the post-loop global BA
 between frames.
 
-With `cfg.frame_batch = B > 1` the session buffers B frames and runs them
-back to back; their HUD entries join the queue only after the batch, so
-the host reactions lag as behind the JAX package's scanned super-step.
-The per-frame arithmetic is that of B = 1.
+Every tracked frame goes through a buffer of `cfg.frame_batch = B` frames
+(1 by default), run back to back once full; their HUD entries join the
+queue only after the batch, so with B > 1 the host reactions lag as behind
+the JAX package's scanned super-step.  The per-frame arithmetic is the
+same for every B.
 
 Localisation mode (`activate_localization_mode`) tracks against a frozen
 map: no keyframe is inserted, and a depth sensor's close unmatched
@@ -240,18 +241,11 @@ class SLAM:
             frame = self._frame_fn(*imgs, self.frame_count, timestamp)
             self._initialize(frame)
             self.frame_count += 1
-        elif self.cfg.frame_batch > 1:
+        else:
             self._batch.append((imgs, self.frame_count, timestamp))
             self.frame_count += 1
             if len(self._batch) >= self.cfg.frame_batch:
                 self._dispatch_batch()
-            self._drain(self.hud_lag)
-        else:
-            self.state, self.ts, frame, hud = self._full_step(
-                self.state, self.ts, imgs, self.frame_count, timestamp,
-                self.localization_only)
-            self._pending.append((self.frame_count, hud.cpu().numpy(), frame))
-            self.frame_count += 1
             self._drain(self.hud_lag)
         self.timings.append(time.perf_counter() - t0)
 
@@ -267,7 +261,8 @@ class SLAM:
             self.state, self.ts, frame, hud = self._full_step(
                 self.state, self.ts, imgs, fid, t, self.localization_only)
             done.append((fid, hud, frame))
-        huds = torch.stack([h for _, h, _ in done]).cpu().numpy()
+        huds = (done[0][1][None] if len(done) == 1 else
+                torch.stack([h for _, h, _ in done])).cpu().numpy()
         for (fid, _, frame), hud in zip(done, huds):
             self._pending.append((fid, hud, frame))
 

@@ -66,7 +66,7 @@ class Vocabulary:
 
 def _load_orbvoc_native(path: str):
     """(k, L, parents, leaves, descs, weights) through the native parser,
-    or None when its library is not available or the file does not parse."""
+    or None when no compiler is present or the file does not parse."""
     lib = native_build.load("voc_parser")
     if lib is None:
         return None
@@ -135,7 +135,7 @@ def load_orbvoc_text(path: str, levels_up: int = 4,
 
     `native`: True parses with the native helper (raising when it cannot
     be built), False with the plain Python parser, None with the native
-    one when available."""
+    one where a compiler is present."""
     parsed = _load_orbvoc_native(path) if native is not False else None
     if native and parsed is None:
         raise RuntimeError(f"the native ORBvoc parser could not read {path}")

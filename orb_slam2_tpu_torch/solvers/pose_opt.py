@@ -27,6 +27,9 @@ from orb_slam2_tpu_torch.solvers import pose_lm_cuda
 
 # pose_optimize calls on CUDA tensors, each one kernel launch
 cuda_calls = 0
+# when a list, each of those calls appends its arguments to it: a run's
+# problems, to hold the kernel against its plain version at their shapes
+recorded = None
 
 
 class PoseOptResult(NamedTuple):
@@ -82,6 +85,9 @@ def pose_optimize(T0, pw, obs_uv, obs_ur, inv_sigma2, valid, is_stereo,
         return pose_optimize_plain(T0, pw, obs_uv, obs_ur, inv_sigma2, valid,
                                    is_stereo, K, bf, cfg)
     cuda_calls += 1
+    if recorded is not None:
+        recorded.append((T0, pw, obs_uv, obs_ur, inv_sigma2, valid, is_stereo,
+                         K, bf, cfg))
     T, inl, n_in, chi2, _ = pose_lm_cuda.pose_lm_cuda(
         T0[None], pw[None], obs_uv[None], obs_ur[None], inv_sigma2[None],
         valid[None], is_stereo[None], K, bf, cfg)

@@ -324,6 +324,25 @@ def test_png_read_time_640x480(tmp_path):
     np.testing.assert_array_equal(img, cv2.imread(p, 0).astype(np.float32))
 
 
+def test_native_helper_falls_back_only_without_a_compiler(
+        tmp_path, monkeypatch, capsys):
+    """A compiler that is present and fails raises; with no compiler at all
+    the reader takes its plain version and says so on stderr."""
+    monkeypatch.setattr(native_build, "_libs", {})
+    monkeypatch.setattr(native_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setenv("CXX", "false")
+    with pytest.raises(RuntimeError, match="false failed"):
+        native_build.load("png_unfilter")
+    monkeypatch.delenv("CXX")
+    monkeypatch.setattr(native_build.shutil, "which", lambda _: None)
+    assert native_build.load("png_unfilter") is None
+    assert "plain Python version" in capsys.readouterr().err
+    arr = _image((9, 11))
+    p = tmp_path / "f.png"
+    p.write_bytes(_png(arr, (0, 1, 2, 3, 4)))
+    np.testing.assert_array_equal(png.read_png(str(p)), arr)
+
+
 # ---------------------------------------------------------------------------
 # EuRoC rectification
 # ---------------------------------------------------------------------------

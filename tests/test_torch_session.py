@@ -202,8 +202,9 @@ def test_batched_run_equals_per_frame_run(port_runs):
 
 def test_partial_batch_waits_for_flush(port_runs):
     """Before flush() the last 2 frames sit in the buffer (no pose logged,
-    no keyframe made for them); flush() runs them, padded to 4 with
-    inactive slots that change nothing."""
+    no keyframe made for them); flush() runs them as a batch of 2, unpadded
+    (the JAX package pads it to 4 with inactive slots, which change
+    nothing)."""
     a = port_runs[B]
     assert port_runs["before_flush_traj_ok"] == N_RUN - 2
     ok = a.ts.traj[:N_RUN, 15] > 0.5
@@ -264,11 +265,15 @@ def test_vo_points_in_motion_model_match_jax(vo_case):
     j_pids, j_opt, j_ok = jax.jit(
         lambda st, ts, fr: jtracking.track_with_motion_model(
             st, ts, fr, jcfg, jnp.asarray(True)))(jst, jts, jf)
+    ttracking.vo_candidates = ttracking.vo_inliers = 0
     t_pids, t_opt, t_ok = ttracking.track_with_motion_model(
         tst, tts, tf, tcfg, True)
     n_vo = int(ttracking.vo_point_mask(
         tts, resolve_replaced(tst, tts.last_pids), tcfg, True).sum())
     vo_inliers = int((t_opt.inliers & (t_pids < 0)).sum())
+    # the module's counts, read here as chip_smoke.py reads them
+    assert int(ttracking.vo_candidates) == n_vo
+    assert int(ttracking.vo_inliers) == vo_inliers
     print(f"VO candidates {n_vo}, VO inliers {vo_inliers} of "
           f"{int(t_opt.n_inliers)}")
     assert n_vo > 0 and vo_inliers > 0          # measured: 28 and 9
@@ -302,8 +307,17 @@ def test_track_step_in_localisation_mode_matches_jax(vo_case):
     jst, jts, jf, tst, tts, tf, jcfg, tcfg = vo_case
     j_state, j_ts, j_pids, j_hud = jax.jit(jtracking.build_track_step(jcfg))(
         jst, jts, jf, jnp.asarray(True))
+    ttracking.need_close_frames = 0
     t_state, t_ts, t_pids, t_hud = ttracking.build_track_step(tcfg)(
         tst, tts, tf, True)
+    # need_close by the reference's rule (Tracking.cc:1002-1037), counted
+    thd = tcfg.camera.th_depth * tcfg.camera.baseline
+    close = tf.valid & (tf.depth > 0) & (tf.depth < thd)
+    n_tc, n_ntc = int((close & (t_pids >= 0)).sum()), \
+        int((close & (t_pids < 0)).sum())
+    need_close = n_tc < tcfg.tracking.close_depth_n and \
+        n_ntc > tcfg.tracking.close_trackable_min
+    assert int(ttracking.need_close_frames) == int(need_close)
     j_hud = np.asarray(j_hud)
     np.testing.assert_array_equal(t_hud.numpy()[[0, 2, 3, 4]],
                                   j_hud[[0, 2, 3, 4]])

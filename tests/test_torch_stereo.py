@@ -491,6 +491,7 @@ def test_create_depth_points_matches_jax(jax_session, seq):
     cfg = _close_cfg(tconfig, sensor)
     t, tk = tops.insert_keyframe(tst, tf, tts.T,
                                  torch.full((n,), -1, dtype=torch.int32))
+    tmapping.depth_points = tmapping.close_depth_points = 0
     t = tmapping.create_depth_points(t, tk, cfg)
     assert tk == int(k)
     d = np.asarray(jf.depth)
@@ -501,6 +502,9 @@ def test_create_depth_points_matches_jax(jax_session, seq):
     quota = cfg.tracking.close_depth_n
     assert 0 < close.sum() < quota < close.sum() + far.sum()
     assert made == quota, (made, close.sum(), far.sum())
+    # the module's counts: every point made, and every close one
+    assert int(tmapping.depth_points) == made
+    assert int(tmapping.close_depth_points) == close.sum()
     assert int(t.next_mp) == int(j.next_mp)
     np.testing.assert_array_equal(t.kf_obs[tk].numpy(),
                                   np.asarray(j.kf_obs[k]))
