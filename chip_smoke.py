@@ -76,7 +76,25 @@ each of which fails the run when it fails:
      per live keyframe;
  15. frame batching: the bench mono sequence's first 60 frames with
      frame_batch = 4 and 1 give bit-identical trajectory logs up to the
-     first host reaction that changed the state (named if there is one).
+     first host reaction that changed the state (named if there is one);
+ 16. the per-level extractor at full width, on frame 0 of the bench mono
+     sequence (640x480, 1000 features) and of the KITTI 00-02 preset's
+     left images (1241x376, 2000): every level's single-image FAST
+     (`fast_nms_raw`) bit-exact with its plain version on the card, the
+     whole Features equal to the extractor with the plain FAST on the card,
+     exactly n_levels launches an image; per-level against atlas extraction
+     ms, the single-plane launches' summed device time against their bytes
+     bound, and the share of atlas keypoints the per-level extractor also
+     finds (same octave, within 1 px);
+ 17. viewer, AR and `view` on the card's session: `ARSession.step` over
+     the bench mono sequence's first AR_FRAMES frames, then
+     `draw_current_frame` (a w x (h + 26) PNG read back: the tracked colour
+     on every tracked keypoint's square, the status bar's text pixel for
+     pixel the string of the session's status, keyframes, points and
+     matches), `render_map` of the map with its trajectory, `cli.main(
+     ["view", ...])` on the saved map and TUM trajectory, and `render_ar`
+     (with a plane found: the cube's colour at its in-frame edges); render
+     ms (host).
  Phase 3 also holds FAST bit-exact on the KITTI stereo pair's real atlas,
  and phase 4 the pose LM on an N = 2048 problem recorded in phase 12.
 
@@ -90,12 +108,10 @@ import dataclasses
 import json
 import os
 import statistics
-import struct
 import subprocess
 import sys
 import tempfile
 import time
-import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -165,6 +181,8 @@ KITTI_TRACKED_MIN_FRAC, KITTI_ATE_GATE_M = 0.9, 0.06
 TUM_ATE_GATE_M = 0.02
 # phase 15: frame batching
 BATCH_FRAMES, BATCH = 60, 4
+# phase 17: the AR session's frames
+AR_FRAMES = 60
 # the JAX package on the CPU on the same directories and sessions
 # (scripts/jax_session_reference.py): phase 11's localisation ATE, phase
 # 12's metric ATE and keyframes, phase 14's metric ATE and keyframes.  The
@@ -232,29 +250,6 @@ TPU.maxPoints: 32768
 """
 
 
-def png_bytes(arr: np.ndarray) -> bytes:
-    """A PNG of an 8-bit gray [H, W], 8-bit RGB [H, W, 3] or 16-bit gray
-    [H, W] array, every row with the Sub filter."""
-    H, W = arr.shape[:2]
-    ch = 1 if arr.ndim == 2 else arr.shape[2]
-    depth = 16 if arr.dtype == np.uint16 else 8
-    raw = np.ascontiguousarray(arr.astype(">u2") if depth == 16 else arr,
-                               ).view(np.uint8).reshape(H, -1)
-    bpp = ch * depth // 8
-    sub = raw.copy()
-    sub[:, bpp:] = raw[:, bpp:] - raw[:, :-bpp]         # wraps mod 256
-    body = np.concatenate([np.ones((H, 1), np.uint8), sub], 1).tobytes()
-
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        return struct.pack(">I", len(data)) + kind + data + struct.pack(
-            ">I", zlib.crc32(kind + data) & 0xFFFFFFFF)
-
-    return (b"\x89PNG\r\n\x1a\n" +
-            chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth,
-                                       {1: 0, 3: 2}[ch], 0, 0, 0)) +
-            chunk(b"IDAT", zlib.compress(body, 6)) + chunk(b"IEND", b""))
-
-
 def _u8(img: np.ndarray) -> np.ndarray:
     return np.clip(img, 0, 255).astype(np.uint8)
 
@@ -262,11 +257,11 @@ def _u8(img: np.ndarray) -> np.ndarray:
 def write_kitti_dir(root: str, seq, right) -> None:
     """KITTI odometry layout: image_0/ and image_1/ 8-bit gray PNGs,
     times.txt."""
+    from orb_slam2_tpu_torch.io.png import write_png
     for sub, imgs in (("image_0", seq.images), ("image_1", right)):
         os.makedirs(os.path.join(root, sub), exist_ok=True)
         for i, img in enumerate(imgs):
-            with open(os.path.join(root, sub, f"{i:06d}.png"), "wb") as f:
-                f.write(png_bytes(_u8(img)))
+            write_png(os.path.join(root, sub, f"{i:06d}.png"), _u8(img))
     with open(os.path.join(root, "times.txt"), "w") as f:
         f.write("".join(f"{t:.6e}\n" for t in seq.timestamps))
 
@@ -274,15 +269,15 @@ def write_kitti_dir(root: str, seq, right) -> None:
 def write_tum_rgbd_dir(root: str, seq, factor: float) -> None:
     """TUM RGB-D layout: rgb/ 8-bit RGB PNGs, depth/ 16-bit PNGs (metres
     times `factor`), rgb.txt and depth.txt."""
+    from orb_slam2_tpu_torch.io.png import write_png
     os.makedirs(os.path.join(root, "rgb"), exist_ok=True)
     os.makedirs(os.path.join(root, "depth"), exist_ok=True)
     rgb, dep = [], []
     for t, img, d in zip(seq.timestamps, seq.images, seq.depths):
         rp, dp = f"rgb/{t:.6f}.png", f"depth/{t:.6f}.png"
-        with open(os.path.join(root, rp), "wb") as f:
-            f.write(png_bytes(np.repeat(_u8(img)[..., None], 3, axis=2)))
-        with open(os.path.join(root, dp), "wb") as f:
-            f.write(png_bytes((d * factor).astype(np.uint16)))
+        write_png(os.path.join(root, rp),
+                  np.repeat(_u8(img)[..., None], 3, axis=2))
+        write_png(os.path.join(root, dp), (d * factor).astype(np.uint16))
         rgb.append(f"{t:.6f} {rp}\n")
         dep.append(f"{t:.6f} {dp}\n")
     with open(os.path.join(root, "rgb.txt"), "w") as f:
@@ -1010,13 +1005,193 @@ def phase_batch(SLAM, cfg, seq, counters):
     return launches
 
 
+def phase_perlevel(counters, images, extractor, pyramid, fast_cuda,
+                   build_atlas_extractor):
+    """Phase 16: the per-level extractor at full width on each (name, ORB
+    config, image); returns (launches, FAST rows for the kernels line)."""
+    rows, launched = [], 0
+    for name, ocfg, img in images:
+        H, W = img.shape
+        x = torch.as_tensor(img, device="cuda")
+        L = ocfg.n_levels
+        # every level through the single-image kernel vs its plain version
+        levels = pyramid.build_pyramid(x, L, ocfg.scale_factor)
+        err, exact = 0.0, True
+        for lv in levels:
+            kn, kr = fast_cuda.fast_nms_raw(lv)
+            pn, pr = fast_cuda.fast_nms_raw_plain(lv)
+            err = max(err, float((kn - pn).abs().max()),
+                      float((kr - pr).abs().max()))
+            exact &= bool(torch.equal(kn, pn)) and bool(torch.equal(kr, pr))
+        check(exact, f"per-level {name}: single-image FAST disagrees with "
+              f"its plain version (max_abs_err {err})")
+        ext = extractor.build_extractor_perlevel(ocfg, H, W)
+        ext_plain = extractor.build_extractor_perlevel(ocfg, H, W, "cuda",
+                                                       use_kernel=False)
+        # the path: counts zeroed just before, read just after
+        _zero(counters)
+        fk = ext(x)
+        torch.cuda.synchronize()
+        n = _read(counters)["fast_nms"]
+        launched += n
+        fp = ext_plain(x)
+        check(n == L, f"per-level {name}: {n} FAST launches, not {L}")
+        same = {f: bool(torch.equal(a, b))
+                for f, a, b in zip(fk._fields, fk, fp)}
+        check(all(same.values()),
+              f"per-level {name}: kernel run differs from the plain one: "
+              f"{same}")
+        atlas = build_atlas_extractor(ocfg, H, W, "cuda")
+        fa = atlas(x)
+        va, vp = fa.valid, fk.valid
+        d = (fa.uv[va][:, None, :] - fk.uv[vp][None, :, :]).abs().amax(-1)
+        hit = ((d <= 1.0) & (fa.octave[va][:, None] ==
+                             fk.octave[vp][None, :])).any(1)
+        share = float(hit.float().mean())
+        per_ms = time_ms(lambda: ext(x), reps=10)
+        atlas_ms = time_ms(lambda: atlas(x), reps=10)
+        plain_ms = time_ms(lambda: ext_plain(x), reps=5, warm=1)
+        call = lambda: [fast_cuda.fast_nms_raw(lv) for lv in levels]
+        # the trace can drop launches: the mean of those it recorded
+        d_one = device_ms(call, "fast_nms_atlas_kernel")
+        d_ms = None if d_one is None else d_one * L
+        q_ms = queued_ms(call)
+        px = [lv.shape[0] * lv.shape[1] for lv in levels]
+        b_s = sum(p * (FAST_IN_BYTES_PER_PX + FAST_OUT_BYTES_PER_PLANE_PX)
+                  for p in px) / PEAK_BYTES_PER_S
+        o_s = sum(px) * FAST_OPS_PER_PX / PEAK_F32_OPS_PER_S
+        bound_ms = max(b_s, o_s) * 1e3
+        rows.append(dict(name=name, err=err, device_ms=d_ms,
+                         queued_ms=q_ms, bound_ms=bound_ms,
+                         bound_by="bytes" if b_s >= o_s else "operations",
+                         per_ms=per_ms, atlas_ms=atlas_ms))
+        print(f"per-level extractor {name} ({L} levels, "
+              f"{int(vp.sum())} keypoints): {n} FAST launches, single-image "
+              f"FAST bit-exact on every level, Features equal to the plain "
+              f"run on the card ({', '.join(same)}); extraction "
+              f"{per_ms:.4f} ms per-level (plain FAST {plain_ms:.4f}) vs "
+              f"atlas {atlas_ms:.4f} ms; the {L} single-plane launches on "
+              f"the device {_dev(d_ms)} in all ({L} x the mean launch the "
+              f"trace recorded; queued back to back {q_ms:.5f} ms) vs "
+              f"bound {bound_ms:.5f} ms "
+              f"({rows[-1]['bound_by']}); atlas "
+              f"keypoints with a per-level one at the same octave within "
+              f"1 px: {share:.4f} of {int(va.sum())}", flush=True)
+    return dict(fast_nms=launched, pose_lm=0), rows
+
+
+def _glyph_pixels_match(px, raster, text: str, x0: int, baseline: int):
+    """Whether the black pixels of `px` in the glyph box of `text` at
+    (x0, baseline) are exactly the glyphs' ink (font scale 1)."""
+    bm = raster.glyphs(text)
+    h, w = bm.shape
+    box = px[baseline - h + 1:baseline + 1, x0:x0 + w]
+    return box.shape[:2] == bm.shape and bool(
+        np.array_equal((box == 0).all(-1), bm))
+
+
+def phase_viz(SLAM, cfg, seq, counters, port_cli, tmp):
+    """Phase 17: an AR session over the bench mono sequence's first
+    AR_FRAMES frames on the card, then every renderer on its state."""
+    from orb_slam2_tpu_torch.core import camera
+    from orb_slam2_tpu_torch.io.png import read_png
+    from orb_slam2_tpu_torch.viz import ar, raster, viewer
+    slam = SLAM(cfg)                      # no device named: the card
+    session = ar.ARSession(slam)
+    _zero(counters)
+    t0 = time.perf_counter()
+    for f in range(AR_FRAMES):
+        session.step(seq.images[f], seq.timestamps[f])
+    slam.flush()
+    wall = time.perf_counter() - t0
+    launches = _read(counters)
+    check(slam.device.type == "cuda", "AR session not on the card")
+    check(slam.status == 2, f"AR session: status {slam.status}")
+    _check_launched("AR session", counters, launches, AR_FRAMES)
+    H, W = seq.images[0].shape
+    lime = np.array([0, 255, 0], np.uint8)
+
+    ms = {}
+    t0 = time.perf_counter()
+    path = slam.draw_current_frame(os.path.join(tmp, "frame.png"))
+    ms["draw_current_frame"] = (time.perf_counter() - t0) * 1e3
+    px = read_png(path)
+    check(px.shape == (H + 26, W, 3),
+          f"draw_current_frame: PNG of shape {px.shape}")
+    uv, valid = slam.get_tracked_keypoints_un()
+    pids = slam.get_tracked_map_points()
+    tracked = valid & (pids >= 0)
+    n = int(tracked.sum())
+    check(n > 50, f"draw_current_frame: {n} tracked keypoints")
+    bad = [(x, y) for x, y in np.floor(uv[tracked]).astype(int)
+           if not (px[y - 3 if y >= 3 else y + 3, x] == lime).all()]
+    check(not bad, f"draw_current_frame: no tracked colour at {bad[:5]}")
+    status = (f"SLAM MODE | KFs: {int(slam.state.n_kf)}, MPs: "
+              f"{int(slam.state.n_mp)}, Matches: {n}")
+    check(_glyph_pixels_match(px, raster, status, 4, H + 16),
+          f"draw_current_frame: the status bar does not read {status!r}")
+
+    t0 = time.perf_counter()
+    out = viewer.render_map(slam.state, os.path.join(tmp, "map.png"),
+                            traj=slam.poses_twc())
+    ms["render_map"] = (time.perf_counter() - t0) * 1e3
+    mp = read_png(out)
+    check(mp.shape == (1170, 1430, 3), f"render_map: PNG of {mp.shape}")
+    n_kf_px = int((mp == (0x1f, 0x77, 0xb4)).all(-1).sum())
+    n_traj_px = int((mp == (0xff, 0x7f, 0x0e)).all(-1).sum())
+    check(n_kf_px > 0 and n_traj_px > 0,
+          f"render_map: keyframe pixels {n_kf_px}, trajectory {n_traj_px}")
+
+    map_path = os.path.join(tmp, "ar_map.npz")
+    traj_path = os.path.join(tmp, "ar_traj.txt")
+    slam.save_map(map_path)
+    slam.save_trajectory_tum(traj_path)
+    t0 = time.perf_counter()
+    out = port_cli.main(["view", "--map", map_path, "--traj", traj_path,
+                         "--out", os.path.join(tmp, "view.png")])
+    ms["cli view"] = (time.perf_counter() - t0) * 1e3
+    check(out is not None and read_png(out).shape == (1170, 1430, 3),
+          "cli view did not write the map PNG")
+
+    img = seq.images[AR_FRAMES - 1]
+    Tcw = slam.ts.T.cpu().numpy()
+    K4 = camera.intrinsics(cfg.camera).numpy()
+    t0 = time.perf_counter()
+    out = ar.render_ar(img, Tcw, K4, session.plane,
+                       os.path.join(tmp, "ar.png"), status="SLAM")
+    ms["render_ar"] = (time.perf_counter() - t0) * 1e3
+    apx = read_png(out)
+    check(apx.shape == (H, W, 3), f"render_ar: PNG of {apx.shape}")
+    plane_s = "no plane found"
+    if session.plane is not None:
+        sc = ar.ar_scene(img, Tcw, K4, session.plane, status="SLAM")
+        mids = [np.floor(ln.pts.mean(0)).astype(int) for ln in sc.lines]
+        inside = [(x, y) for x, y in mids if 0 <= x < W and 0 <= y < H - 20]
+        plane_s = (f"plane normal {np.round(session.plane.n, 4).tolist()} "
+                   f"origin {np.round(session.plane.o, 4).tolist()}, cube "
+                   f"edges {len(sc.lines)}, {len(inside)} midpoints in the "
+                   "frame")
+        check(sc.lines and inside and all(
+            (apx[y, x] == lime).all() for x, y in inside),
+            f"render_ar: the cube's edges were not drawn ({plane_s})")
+    print(f"viewer/AR on the card's session: {AR_FRAMES} frames through "
+          f"ARSession.step in {wall:.2f} s, status {slam.status}, "
+          f"keyframes {int(slam.state.n_kf)}, points {int(slam.state.n_mp)}, "
+          f"{n} tracked keypoints drawn; {plane_s}; status bar "
+          f"{status!r}; render ms (host) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
+          + f"; launches {launches}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false")
     try:
         from orb_slam2_tpu_torch import cli as port_cli
         from orb_slam2_tpu_torch import config, native_build
-        from orb_slam2_tpu_torch.frontend import fast_cuda, pyramid
+        from orb_slam2_tpu_torch.frontend import (extractor, fast_cuda,
+                                                  pyramid)
         from orb_slam2_tpu_torch.frontend.atlas import build_atlas_extractor
         from orb_slam2_tpu_torch.io import datasets, evaluate, synthetic
         from orb_slam2_tpu_torch.pipeline import mapping, tracking
@@ -1202,6 +1377,18 @@ def main() -> int:
                                             st_seq, rgbd_cfg.camera, tmp)
         launches["batch"] = phase_batch(SLAM, cfg, seq, counters)
 
+        # 16. the per-level extractor at full width
+        launches["perlevel"], perlevel_rows = phase_perlevel(
+            counters, [("bench mono 640x480", cfg.orb, seq.images[0]),
+                       ("KITTI 00-02 left 1241x376",
+                        config.kitti_config().orb, kseq.images[0])],
+            extractor, pyramid, fast_cuda, build_atlas_extractor)
+
+        # 17. viewer, AR and the view command on the card's session
+        with tempfile.TemporaryDirectory(dir=here, prefix="_smoke_") as tmp:
+            launches["ar"] = phase_viz(SLAM, cfg, seq, counters, port_cli,
+                                       tmp)
+
         # 3 (continued). FAST on the KITTI stereo pair's real atlas
         kpair = torch.stack([torch.as_tensor(kseq.images[0]),
                              torch.as_tensor(kright[0])]).cuda()
@@ -1236,7 +1423,12 @@ def main() -> int:
         # and per path
         "launches": total["fast_nms"],
         "launches_by_path": by_path("fast_nms"),
-        "max_abs_err": max(r["err"] for r in rows),
+        "max_abs_err": max(r["err"] for r in rows + perlevel_rows),
+        # the per-level path: one frame's single-plane launches, summed
+        "perlevel_device_ms": {r["name"]: r["device_ms"]
+                               for r in perlevel_rows},
+        "perlevel_bound_ms": {r["name"]: r["bound_ms"]
+                              for r in perlevel_rows},
         # one frame: the main path's atlas of 8 levels, one launch
         "ms": frame_row["ms"],
         "plain_ms": frame_row["plain_ms"],
@@ -1258,7 +1450,7 @@ def main() -> int:
         "library_ms": None,
     }]
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

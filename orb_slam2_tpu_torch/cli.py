@@ -6,15 +6,20 @@ and the synthetic sequence behind one entry point:
     tpu-slam-torch run --dataset tum --sensor mono --path <seq> [--settings x.yaml]
     tpu-slam-torch run --dataset kitti --sensor stereo --path <seq> --settings KITTI00-02.yaml
     tpu-slam-torch run --dataset synthetic --sensor mono --frames 120
+    tpu-slam-torch view --map map.npz --traj CameraTrajectory.txt --out map.png
 
-It runs on the CUDA card unless `--device` names another device.  The
+`run` runs on the CUDA card unless `--device` names another device.  The
 trajectory goes to `--output` (default CameraTrajectory.txt) in TUM format,
-or in KITTI format for `--dataset kitti`.
+or in KITTI format for `--dataset kitti`.  `view` renders a saved map (the
+npz of `SLAM.save_map`, either package's) with an optional TUM trajectory,
+or the trajectory alone, to a PNG on the host.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 import time
 
 import numpy as np
@@ -118,9 +123,33 @@ def cmd_run(args):
     return slam
 
 
+def cmd_view(args):
+    """Render a saved map checkpoint and/or a TUM trajectory to a PNG (the
+    headless equivalent of the reference Pangolin viewer, Viewer.cc /
+    MapDrawer.cc); returns the path written, None without an input."""
+    from orb_slam2_tpu_torch.viz.viewer import render_map, render_trajectory
+    traj = None
+    if args.traj:
+        rows = np.loadtxt(args.traj, ndmin=2)
+        # TUM format: t tx ty tz qx qy qz qw -> [F, 7] wxyz + t
+        traj = np.concatenate([rows[:, [7, 4, 5, 6]], rows[:, 1:4]], axis=1)
+    if args.map:
+        from orb_slam2_tpu_torch.map.checkpoint import load_map
+        state = load_map(args.map, device="cpu")
+        out = render_map(state, args.out, traj=traj,
+                         title=os.path.basename(args.map))
+    elif traj is not None:
+        out = render_trajectory(traj, args.out)
+    else:
+        print("need --map and/or --traj", file=sys.stderr)
+        return None
+    print("wrote", out)
+    return out
+
+
 def main(argv=None):
     """Parse `argv` and run the command; returns the `run` command's
-    session."""
+    session or the path `view` wrote."""
     ap = argparse.ArgumentParser(prog="tpu-slam-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     run = sub.add_parser("run", help="run SLAM on a sequence")
@@ -141,6 +170,11 @@ def main(argv=None):
     run.add_argument("--device", default=None,
                      help="torch device (default: the CUDA card)")
     run.set_defaults(fn=cmd_run)
+    view = sub.add_parser("view", help="render a map/trajectory image")
+    view.add_argument("--map", help="map checkpoint (npz from save_map)")
+    view.add_argument("--traj", help="TUM-format trajectory file")
+    view.add_argument("--out", default="map.png")
+    view.set_defaults(fn=cmd_view)
     args = ap.parse_args(argv)
     return args.fn(args)
 

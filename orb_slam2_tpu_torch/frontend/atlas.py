@@ -115,14 +115,7 @@ def build_atlas_extractor(cfg: ORBConfig, height: int, width: int,
     lvl_w = tens([s[1] for s in shapes], torch.int64)
     scale_pow = tens([cfg.scale_factor ** i for i in range(L)], torch.float32)
     quota_g = tens(np.tile(quotas, B), torch.int64)                # [G]
-    # cascade resize weights: level i-1 -> level i, per axis (None = same)
-    rs_w = []
-    for i in range(1, L):
-        (h0, w0), (h1, w1) = shapes[i - 1], shapes[i]
-        rs_w.append((tens(pyramid.resize_weights(h0, h1), torch.float32)
-                     if h0 != h1 else None,
-                     tens(pyramid.resize_weights(w0, w1), torch.float32)
-                     if w0 != w1 else None))
+    rs_w = pyramid.cascade_weights(shapes, dev)
 
     cell = cfg.cell_size
     Hc, Wc = _ceil_to(Hp, cell), _ceil_to(Wp, cell)
@@ -165,14 +158,7 @@ def build_atlas_extractor(cfg: ORBConfig, height: int, width: int,
                              f"{tuple(img.shape)}")
         # ---- pyramid (cascade, like ORBextractor.cc:1107), each level
         # [H, W] or [B, H, W] ----
-        levels = [img]
-        for wh, ww in rs_w:
-            x = levels[-1]
-            if wh is not None:
-                x = wh.T @ x
-            if ww is not None:
-                x = x @ ww
-            levels.append(x)
+        levels = pyramid.cascade(img, rs_w)
         pad = lambda a: F.pad(a, (0, Wp - a.shape[-1], 0, Hp - a.shape[-2]))
         atlas = torch.stack([pad(lv) for lv in levels], -3
                             ).reshape(G, Hp, Wp)                 # [G, Hp, Wp]

@@ -61,3 +61,23 @@ def nms3x3(score: torch.Tensor) -> torch.Tensor:
             if (dy, dx) != (0, 0):
                 m = torch.maximum(m, torch.roll(score, (dy, dx), dims=(0, 1)))
     return torch.where(score >= m, score, torch.zeros_like(score))
+
+
+def cell_threshold(score: torch.Tensor, cell: int, ini_th: float,
+                   min_th: float) -> torch.Tensor:
+    """Dual threshold per `cell` x `cell` px cell: keep scores > ini_th; in
+    a cell where none passes ini_th, keep scores > min_th (reference
+    ORBextractor.cc:809-816).  Every cell holds a pixel, so the per-cell
+    max never reads an empty segment."""
+    h, w = score.shape
+    n_cx = -(-w // cell)
+    n_cy = -(-h // cell)
+    cy = torch.arange(h, device=score.device) // cell
+    cx = torch.arange(w, device=score.device) // cell
+    cell_id = cy[:, None] * n_cx + cx[None, :]
+    cell_max = torch.zeros(n_cy * n_cx, dtype=score.dtype,
+                           device=score.device).scatter_reduce(
+        0, cell_id.reshape(-1), score.reshape(-1), "amax",
+        include_self=False)
+    th = torch.where(cell_max[cell_id] > ini_th, ini_th, min_th)
+    return torch.where(score > th, score, torch.zeros_like(score))

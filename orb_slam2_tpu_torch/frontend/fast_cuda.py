@@ -11,6 +11,12 @@ levels of all images; for a CPU tensor it runs `fast_nms_atlas_plain`, the
 same function in tensor ops.  There is no fallback from one to the other:
 a CUDA tensor that the kernel cannot take raises.
 
+`fast_nms_raw(img)` / `fast_nms(img)` are the single-image entry points
+(the counterparts of `fast_nms_raw_pallas` / `fast_nms_pallas`) that the
+per-level extractor calls once per level: an [H, W] f32 level in, [H, W]
+maps out; on a CUDA tensor one launch of the same kernel over a one-plane
+atlas, on a CPU tensor `fast_nms_raw_plain`.
+
 `launches` counts the kernel's launches, so a run can show that its main
 path went through the kernel, and `planes` the atlas planes they covered.
 """
@@ -118,3 +124,22 @@ def fast_nms_atlas(atlas: torch.Tensor, shapes: Sequence[Tuple[int, int]]):
     if atlas.is_cuda:
         return fast_nms_atlas_cuda(atlas, shapes)
     return fast_nms_atlas_plain(atlas, shapes)
+
+
+def fast_nms_raw(img: torch.Tensor):
+    """[H, W] f32 level -> (nms score, raw score), each [H, W].  A CUDA
+    tensor goes through the kernel (one launch, a one-plane atlas); a CPU
+    tensor through the plain version."""
+    if img.dim() != 2 or img.dtype != torch.float32:
+        raise ValueError(f"expected an [H, W] float32 level, got "
+                         f"{tuple(img.shape)} {img.dtype}")
+    if img.is_cuda:
+        nms, raw = fast_nms_atlas_cuda(img[None], [tuple(img.shape)])
+        return nms[0], raw[0]
+    return fast_nms_raw_plain(img)
+
+
+def fast_nms(img: torch.Tensor) -> torch.Tensor:
+    """[H, W] f32 level -> [H, W] FAST-9 score after 3x3 NMS
+    (`fast_nms_raw`'s first map)."""
+    return fast_nms_raw(img)[0]

@@ -1,10 +1,14 @@
-"""A PNG reader in numpy and zlib, for machines without OpenCV or PIL.
+"""A PNG reader and writer in numpy and zlib, for machines without OpenCV
+or PIL.
 
 Reads what the datasets the reference runs on hold: 8-bit gray images,
 8-bit RGB / RGBA / gray-alpha images (converted to gray as
 `cv2.imread(path, cv2.IMREAD_GRAYSCALE)` does) and 16-bit gray depth maps
 (big-endian samples, returned exactly).  Interlaced, palette, sub-byte and
 16-bit colour files raise ValueError.
+
+`write_png` writes 8-bit gray, 8-bit RGB and 16-bit gray images (every
+row with the Sub filter).
 
 Unfiltering (PNG filter types 0-4) runs in the native helper
 `native/png_unfilter.cpp` (built with g++ at first use), or, where no C++
@@ -175,3 +179,37 @@ def to_gray(px: np.ndarray) -> np.ndarray:
 def imread_gray(path: str) -> np.ndarray:
     """A PNG as an [H, W] float32 gray image of 0-255 values."""
     return to_gray(read_png(path)).astype(np.float32)
+
+
+def write_png(path: str, arr: np.ndarray) -> str:
+    """Write an 8-bit gray [H, W], 8-bit RGB [H, W, 3] or 16-bit gray
+    [H, W] array to `path` as a PNG, every row with the Sub filter;
+    returns the path."""
+    arr = np.asarray(arr)
+    ok = (arr.dtype == np.uint8 and (arr.ndim == 2 or (
+        arr.ndim == 3 and arr.shape[2] == 3))) or (
+        arr.dtype == np.uint16 and arr.ndim == 2)
+    if not ok:
+        raise ValueError(f"cannot write a {arr.dtype} array of shape "
+                         f"{arr.shape} as PNG")
+    H, W = arr.shape[:2]
+    ch = 1 if arr.ndim == 2 else 3
+    depth = 16 if arr.dtype == np.uint16 else 8
+    raw = np.ascontiguousarray(arr.astype(">u2") if depth == 16 else arr
+                               ).view(np.uint8).reshape(H, -1)
+    bpp = ch * depth // 8
+    sub = raw.copy()
+    sub[:, bpp:] = raw[:, bpp:] - raw[:, :-bpp]         # wraps mod 256
+    body = np.concatenate([np.ones((H, 1), np.uint8), sub], 1).tobytes()
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(
+            ">I", zlib.crc32(kind + data) & 0xFFFFFFFF)
+
+    data = (_SIGNATURE +
+            chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth,
+                                       {1: 0, 3: 2}[ch], 0, 0, 0)) +
+            chunk(b"IDAT", zlib.compress(body, 6)) + chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(data)
+    return path

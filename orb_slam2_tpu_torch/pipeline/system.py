@@ -55,6 +55,7 @@ from orb_slam2_tpu_torch.pipeline.tracking import (HUD_N_KF, HUD_NEED_KF,
                                                    TrackState, record_traj)
 from orb_slam2_tpu_torch.place.vocab import Vocabulary, build_transform
 from orb_slam2_tpu_torch.solvers import twoview
+from orb_slam2_tpu_torch.viz.viewer import render_frame
 
 BA_ITERS = 5
 DEFAULT_VOCAB = os.path.join(os.path.dirname(os.path.dirname(
@@ -198,6 +199,7 @@ class SLAM:
         self._reloc_pending = None           # (frame_id, reloc out, Frame)
         self._batch: list = []               # (imgs, frame_id, timestamp)
         self._last_big_change = 0
+        self._last_img = None                # for draw_current_frame
 
         # vocabulary: the reference loads ORBvoc.txt at startup
         # (System.cc:62); the package ships a trained default
@@ -218,16 +220,19 @@ class SLAM:
 
     # ------------------------------------------------------------------
     def track_mono(self, img: np.ndarray, timestamp: float):
+        self._last_img = img
         self._track(MONOCULAR, (img,), timestamp)
 
     def track_rgbd(self, img: np.ndarray, depth: np.ndarray,
                    timestamp: float):
         """`depth`: the registered depth map in metres (0 = none)."""
+        self._last_img = img
         self._track(RGBD, (img, depth), timestamp)
 
     def track_stereo(self, img_l: np.ndarray, img_r: np.ndarray,
                      timestamp: float):
         """A rectified pair."""
+        self._last_img = img_l
         self._track(STEREO, (img_l, img_r), timestamp)
 
     def _track(self, sensor: int, imgs, timestamp: float):
@@ -562,6 +567,19 @@ class SLAM:
         validity mask [N] (System::GetTrackedKeyPointsUn)."""
         self.flush()
         return self.ts.last_uv.cpu().numpy(), self.ts.last_valid.cpu().numpy()
+
+    def draw_current_frame(self, out_path: str) -> str:
+        """Render the last tracked frame with its keypoint overlay and
+        status bar to a PNG (reference FrameDrawer::DrawFrame,
+        FrameDrawer.cc:38-165); returns out_path."""
+        self.flush()
+        img = self._last_img
+        if img is None:
+            img = np.zeros((self.cfg.camera.height, self.cfg.camera.width))
+        return render_frame(
+            img, self.ts.last_uv, self.ts.last_valid, self.ts.last_pids,
+            self.status, int(self.state.n_kf), int(self.state.n_mp),
+            out_path, loc_only=self.localization_only)
 
     def map_changed(self) -> bool:
         """Reference System::MapChanged (System.cc:282-293): whether the

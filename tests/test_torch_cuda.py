@@ -1,8 +1,10 @@
 """Tests of the port that need a CUDA card: the hand-written kernels
 against their plain PyTorch versions on the card — FAST-9+NMS over a level
-atlas bit-exact, the pose LM within 1e-4 with the same inliers (also with
-every row stereo), two launches bit-identical — and the mono and two-image
-extractors and the stereo frame function, card against CPU.
+atlas and through the single-image entry points bit-exact, the pose LM
+within 1e-4 with the same inliers (also with every row stereo), two
+launches bit-identical — the per-level extractor with the kernel against
+the same extractor with the plain version on the card, and the mono and
+two-image extractors and the stereo frame function, card against CPU.
 They skip without a card.  This file imports neither JAX nor the JAX
 package, so it also runs where only PyTorch is installed:
 
@@ -43,6 +45,56 @@ def test_fast_kernel_matches_plain_on_card(shape):
     torch.cuda.synchronize()
     assert fast_cuda.launches == before + 1
     assert torch.equal(kn, pn) and torch.equal(kr, pr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES + [(376, 1241)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_single_image_fast_matches_plain_on_card(shape):
+    """`fast_nms_raw` / `fast_nms` on a CUDA level: one launch each, equal
+    bit for bit to `fast_nms_raw_plain` on the card."""
+    _card()
+    rng = np.random.RandomState(shape[0] + 7 * shape[1])
+    img = torch.from_numpy((rng.rand(*shape) * 255).astype(np.float32)).cuda()
+    before = fast_cuda.launches
+    kn, kr = fast_cuda.fast_nms_raw(img)
+    kn1 = fast_cuda.fast_nms(img)
+    pn, pr = fast_cuda.fast_nms_raw_plain(img)
+    torch.cuda.synchronize()
+    assert fast_cuda.launches == before + 2
+    assert kn.shape == kr.shape == tuple(shape)
+    assert torch.equal(kn, pn) and torch.equal(kr, pr) and torch.equal(kn1, pn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["bench", "kitti"])
+def test_perlevel_extractor_kernel_matches_plain_on_card(preset):
+    """The per-level extractor on the card with no device named: one FAST
+    launch a level; every field of its Features equal to the same
+    extractor with the plain FAST on the card (`use_kernel=False`, no
+    launch) — the same ops on the same device, the FAST maps bit-exact.
+    At the bench's 640x480 (1000 features) and the KITTI 00-02 preset's
+    1241x376 (2000)."""
+    _card()
+    from orb_slam2_tpu_torch.frontend.extractor import \
+        build_extractor_perlevel
+    from orb_slam2_tpu_torch.io import synthetic
+    cfg = config.SLAMConfig() if preset == "bench" else config.kitti_config()
+    cam = cfg.camera
+    img = torch.from_numpy(synthetic.generate(cam, n_frames=1, n_points=50,
+                                              seed=0).images[0]).cuda()
+    kern = build_extractor_perlevel(cfg.orb, cam.height, cam.width)
+    plain = build_extractor_perlevel(cfg.orb, cam.height, cam.width, "cuda",
+                                     use_kernel=False)
+    before = fast_cuda.launches
+    fk = kern(img)
+    assert fast_cuda.launches == before + cfg.orb.n_levels
+    fp = plain(img)
+    torch.cuda.synchronize()
+    assert fast_cuda.launches == before + cfg.orb.n_levels
+    assert fk.uv.is_cuda and int(fk.valid.sum()) > 0.5 * cfg.orb.n_features
+    for a, b in zip(fk, fp):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

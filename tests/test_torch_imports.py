@@ -58,7 +58,8 @@ def test_importing_the_port_loads_no_jax():
         "map.checkpoint", "cli", "native_build", "place.vocab",
         "place.database", "pipeline.reloc", "pipeline.loopclosing",
         "ba.posegraph", "ba.async_gba", "solvers.epnp", "solvers.sim3",
-        "solvers.pose_lm_cuda", "cuda_build")]
+        "solvers.pose_lm_cuda", "cuda_build", "frontend.extractor",
+        "viz.raster", "viz.viewer", "viz.ar", "io.ros")]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
             "import chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -75,7 +76,8 @@ def _builders():
     """Each public builder of the port called with no device."""
     from orb_slam2_tpu_torch import config
     from orb_slam2_tpu_torch.frontend.atlas import build_atlas_extractor
-    from orb_slam2_tpu_torch.frontend.extractor import build_extractor
+    from orb_slam2_tpu_torch.frontend.extractor import (
+        build_extractor, build_extractor_perlevel)
     from orb_slam2_tpu_torch.pipeline.frame import (build_mono_frame_fn,
                                                     build_rgbd_frame_fn,
                                                     build_stereo_frame_fn)
@@ -87,6 +89,8 @@ def _builders():
         "build_atlas_extractor": lambda: build_atlas_extractor(cfg.orb, 48,
                                                                64),
         "build_extractor": lambda: build_extractor(cfg.orb, 48, 64),
+        "build_extractor_perlevel": lambda: build_extractor_perlevel(
+            cfg.orb, 48, 64),
         "build_mono_frame_fn": lambda: build_mono_frame_fn(cfg),
         "build_rgbd_frame_fn": lambda: build_rgbd_frame_fn(cfg),
         "build_stereo_frame_fn": lambda: build_stereo_frame_fn(cfg),
@@ -97,6 +101,7 @@ def _builders():
 
 
 @pytest.mark.parametrize("name", ["build_atlas_extractor", "build_extractor",
+                                  "build_extractor_perlevel",
                                   "build_mono_frame_fn", "build_rgbd_frame_fn",
                                   "build_stereo_frame_fn", "build_full_step",
                                   "build_transform"])
@@ -106,3 +111,14 @@ def test_builders_default_to_cuda(name, monkeypatch):
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _builders()[name]()
+
+
+def test_ar_session_runs_on_cuda_by_default(monkeypatch):
+    """ARSession drives a session made with no device: with no card, making
+    it raises instead of running on the CPU."""
+    from orb_slam2_tpu_torch import config
+    from orb_slam2_tpu_torch.pipeline.system import SLAM
+    from orb_slam2_tpu_torch.viz.ar import ARSession
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ARSession(SLAM(config.SLAMConfig()))

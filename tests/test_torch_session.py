@@ -6,7 +6,8 @@ exports and the getters.
 
 One JAX session with `frame_batch = 4` (its scanned super-step) runs
 N_RUN frames and is flushed with a partial batch pending; its state is
-carried into the port with `convert.py` where a test starts from it.
+carried into the port with `convert.py` where a test starts from it
+(also for `draw_current_frame`, held against JAX's on its last image).
 Stereo initialisation draws no random samples, so the two packages'
 sessions part only by float round-off (sums in another order inside the
 pose LMs and BAs) and are compared within stated tolerances.  The inputs
@@ -34,6 +35,7 @@ from orb_slam2_tpu_torch.map.state import resolve_replaced
 from orb_slam2_tpu_torch.pipeline import system as tsystem
 from orb_slam2_tpu_torch.pipeline import tracking as ttracking
 from orb_slam2_tpu_torch.pipeline.tracking import LOST, NOT_INITIALIZED, OK
+from test_torch_viz import recorded  # noqa: F401  (fixture)
 
 STEREO = jconfig.STEREO
 B = 4
@@ -487,3 +489,61 @@ def test_getters_and_map_changed(jax_run):
         big_change=tslam.state.big_change + 1)
     assert tslam.map_changed() is True
     assert tslam.map_changed() is False
+
+
+# ---------------------------------------------------------------------------
+# the current-frame view
+# ---------------------------------------------------------------------------
+
+def test_draw_current_frame_matches_jax(jax_run, seq, recorded, tmp_path,
+                                        monkeypatch):
+    """draw_current_frame on the JAX session's final state and last image:
+    the port draws the primitives JAX's draws (the keypoint sets, their
+    colours and the status text, letter for letter) into a w x (h + 26)
+    PNG.  JAX's method runs on a stand-in holding that state, since
+    other tests go on tracking with the JAX session."""
+    import types
+    from orb_slam2_tpu_torch.io.png import read_png
+    from orb_slam2_tpu_torch.viz import viewer as tviewer
+    from test_torch_viz import _same
+    last = seq[0].images[N_RUN - 1]
+    JSLAM.draw_current_frame(types.SimpleNamespace(
+        flush=lambda: None, _last_img=last, ts=jax_run["ts"],
+        state=jax_run["state"], status=OK, localization_only=False,
+        cfg=jax_run["slam"].cfg), str(tmp_path / "j.png"))
+    tslam = _carried_session(jax_run)
+    tslam._last_img = last
+    scenes = []
+    orig = tviewer.frame_scene
+    monkeypatch.setattr(tviewer, "frame_scene",
+                        lambda *a, **k: scenes.append(orig(*a, **k)) or
+                        scenes[-1])
+    out = tslam.draw_current_frame(str(tmp_path / "t.png"))
+    sc = scenes[0]
+    _same(list(sc.marks) + list(sc.texts), recorded)
+    jts, jst = jax_run["ts"], jax_run["state"]
+    n = int((np.asarray(jts.last_valid) & (np.asarray(jts.last_pids) >= 0)
+             ).sum())
+    assert n > 100
+    assert sc.texts[0].text == (
+        f"SLAM MODE | KFs: {int(jst.n_kf)}, MPs: {int(jst.n_mp)}, "
+        f"Matches: {n}")
+    assert read_png(out).shape == (240 + 26, 320, 3)
+
+
+def test_track_calls_keep_the_last_image(seq):
+    """track_mono, track_stereo and track_rgbd keep their (left) image for
+    draw_current_frame, as the JAX session does."""
+    s, right = seq
+    for sensor, track, img in (
+            (tconfig.MONOCULAR, lambda sl: sl.track_mono(s.images[0], 0.0),
+             s.images[0]),
+            (tconfig.STEREO, lambda sl: sl.track_stereo(s.images[1],
+                                                        right[1], 0.0),
+             s.images[1]),
+            (tconfig.RGBD, lambda sl: sl.track_rgbd(s.images[2], s.depths[2],
+                                                    0.0), s.images[2])):
+        slam = _port(small_cfg(tconfig, sensor=sensor))
+        assert slam._last_img is None
+        track(slam)
+        np.testing.assert_array_equal(slam._last_img, img)
