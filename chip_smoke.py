@@ -95,6 +95,26 @@ each of which fails the run when it fails:
      ["view", ...])` on the saved map and TUM trajectory, and `render_ar`
      (with a plane found: the cube's colour at its in-frame edges); render
      ms (host).
+ 18. S RGB-D sequences stepped together (`distributed/dp.py`) at the RGB-D
+     cell's configuration, on the bench renderer's 48-frame xyz sequences
+     of seeds 0..S-1, S = 1, 2, 4, 8: FAST bit-exact on the 32- and
+     64-plane atlases of frame 0; each run one FAST launch a step over 8·S
+     planes, every pose LM through its kernel (2 a stepped frame, plus a
+     reference-keyframe fallback's), every sequence >= 90% tracked with
+     metric ATE <= 0.02 m; the S = 4 run's sequences against their own
+     S = 1 runs (bit-identical, or the same keyframe count and ATE within
+     1 mm, with the descriptors that differ counted); step ms, total
+     frames/s and its ratio to S = 1, the device idle share at S = 4,
+     peak memory at S = 8; `build_sharded_step` on a 1-rank gloo group
+     issues no collective in two profiled steps;
+ 19. the sharded solvers: `distributed/launch.py` spawns 2 gloo ranks on
+     the one card (CUDA tensors, joined by `init_multihost` from SLAM_*),
+     observation-sharded BA on 64 cameras x 4,096 points, landmark-sharded
+     BA on phase 18's sequence-0 map (saved with `map/checkpoint.py`,
+     loaded by each rank) and the pose graph of a 48-node ring, each run
+     twice: bit-equal on repeat and across ranks, within
+     tests/test_distributed.py's tolerances of the single-rank solve here;
+     sharded and single-rank ms, all-reduces and their ms.
  Phase 3 also holds FAST bit-exact on the KITTI stereo pair's real atlas,
  and phase 4 the pose LM on an N = 2048 problem recorded in phase 12.
 
@@ -106,13 +126,14 @@ missing, or any phase fails.  Imports nothing of JAX.
 
 import dataclasses
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -183,6 +204,26 @@ TUM_ATE_GATE_M = 0.02
 BATCH_FRAMES, BATCH = 60, 4
 # phase 17: the AR session's frames
 AR_FRAMES = 60
+# phase 18: S RGB-D sequences stepped together (distributed/dp.py), the
+# bench renderer's xyz sequence of seed s for s < S (scripts/
+# dp_slam_bench.py --frames 48, at the bench's 500 points); DP_COMPARE's
+# sequences are held against their own S = 1 runs; the last DP_PROFILED
+# steps of that run are profiled (device idle share), the steps from the
+# third up to them timed
+DP_FRAMES, DP_SIZES, DP_COMPARE, DP_PROFILED = 48, (1, 2, 4, 8), 4, 8
+DP_ATE_MARGIN_M = 0.001
+# phase 19: the sharded solvers on 2 gloo ranks of the one card, held to
+# the single-rank solver at tests/test_distributed.py's sizes and
+# tolerances: observation-sharded BA on 64 cameras x 4,096 points
+# (tests/test_ba.py's recipe, seed 11; its iterations), landmark-sharded
+# BA on phase 18's sequence-0 map, the pose graph of a 48-node ring (10 LM
+# steps of 20 CG iterations, as tests/test_torch_distributed.py: each of
+# the pose graph's steps takes ~0.17 s of host time on the card)
+SHARD_RANKS = 2
+SHARD_BA_ITERS = dict(n_outer=8, n_cg=25)
+SHARD_PG_ITERS = dict(n_outer=10, n_cg=20)
+SHARD_TOL = {"obs": (1e-4, 1e-3), "pt": (1e-3, 1e-2), "pg": (1e-3, None)}
+SHARD_TIMEOUT_S = 600
 # the JAX package on the CPU on the same directories and sessions
 # (scripts/jax_session_reference.py): phase 11's localisation ATE, phase
 # 12's metric ATE and keyframes, phase 14's metric ATE and keyframes.  The
@@ -1184,6 +1225,361 @@ def phase_viz(SLAM, cfg, seq, counters, port_cli, tmp):
     return launches
 
 
+def _count_calls(module, name, log):
+    """Wrap `module.name` so that each call appends its name to `log`;
+    returns the original."""
+    inner = getattr(module, name)
+
+    def counted(*args, **kwargs):
+        log.append(name)
+        return inner(*args, **kwargs)
+
+    setattr(module, name, counted)
+    return inner
+
+
+def _dp_run(dp, tracking, cfg, seqs, seeds, counters, profiled=0):
+    """init + DP_FRAMES - 1 steps of the dp step over the sequences
+    `seeds` as one batch; the last `profiled` steps under torch.profiler.
+    Returns a dict of the run."""
+    S = len(seeds)
+    stack = lambda k: torch.as_tensor(np.stack(
+        [np.asarray(getattr(seqs[s], k), np.float32) for s in seeds]))
+    imgs, depths = stack("images").cuda(), stack("depths").cuda()
+    stamps = stack("timestamps").cuda()
+    init_fn, step_fn = dp.build_dp_step(cfg, "cuda")
+    state, ts = dp.make_batch_states(cfg, S, "cuda")
+    calls = []
+    inner = [_count_calls(tracking, n, calls) for n in
+             ("track_with_motion_model", "track_reference_keyframe")]
+    _zero(counters)
+    fast_cuda = counters[0]
+    try:
+        state, ts = init_fn(state, ts, imgs[:, 0], depths[:, 0])
+        ms, huds, prof = [], [], None
+        last = DP_FRAMES - profiled
+        for f in range(1, last):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fid = torch.full((S,), f, dtype=torch.int32, device="cuda")
+            state, ts, hud = step_fn(state, ts, imgs[:, f], depths[:, f],
+                                     fid, stamps[:, f])
+            huds.append(hud.cpu().numpy())
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if profiled:
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for f in range(last, DP_FRAMES):
+                    fid = torch.full((S,), f, dtype=torch.int32,
+                                     device="cuda")
+                    state, ts, hud = step_fn(state, ts, imgs[:, f],
+                                             depths[:, f], fid, stamps[:, f])
+                    huds.append(hud.cpu().numpy())
+                torch.cuda.synchronize()
+    finally:
+        tracking.track_with_motion_model, \
+            tracking.track_reference_keyframe = inner
+    return dict(state=state, ts=ts, ms=ms, huds=np.stack(huds, 1),
+                prof=prof, launches=_read(counters),
+                planes=fast_cuda.planes, calls=counters[2].cuda_calls,
+                track_calls=len(calls))
+
+
+def _dp_ate(dp, evaluate, seqs, seeds, run):
+    """Per sequence of a dp run: (tracked frames, metric ATE)."""
+    out = []
+    for s, (t, twc) in zip(seeds, dp.trajectories(run["state"], run["ts"],
+                                                  DP_FRAMES)):
+        ie, ig = evaluate.match_timestamps(t, seqs[s].timestamps)
+        out.append((len(ie), evaluate.ate_rmse(
+            twc[ie], seqs[s].poses_twc[ig], align_scale=False)))
+    return out
+
+
+def _dp_against_alone(dp, tracking, evaluate, build_atlas_extractor, cfg,
+                      seqs, big, ates, counters):
+    """Each sequence of the S = DP_COMPARE run against its own S = 1 run:
+    bit-identical trajectories, or else the descriptors that the batched
+    extraction (the BRIEF GEMM at another M) gives differently, equal
+    keyframe counts and an ATE within DP_ATE_MARGIN_M."""
+    H, W = cfg.camera.height, cfg.camera.width
+    ext_s = build_atlas_extractor(cfg.orb, H, W, "cuda", n_images=DP_COMPARE)
+    ext_1 = build_atlas_extractor(cfg.orb, H, W, "cuda")
+    for s in range(DP_COMPARE):
+        alone = _dp_run(dp, tracking, cfg, seqs, [s], counters)
+        same = torch.equal(big["ts"].traj[s], alone["ts"].traj[0])
+        kf_b = int(big["state"].kf_valid[s].sum())
+        kf_a = int(alone["state"].kf_valid[0].sum())
+        ate_a = _dp_ate(dp, evaluate, seqs, [s], alone)[0][1]
+        msg = (f"dp S={DP_COMPARE} sequence {s} against its S=1 run: "
+               f"trajectory {'bit-identical' if same else 'differs'}, "
+               f"keyframes {kf_b} / {kf_a}, metric ATE {ates[s]:.6f} / "
+               f"{ate_a:.6f} m")
+        if not same:
+            # the GEMM's two moment columns give the keypoint angle, so it
+            # moves by round-off too
+            differ = total = 0
+            dang = 0.0
+            for f in range(DP_FRAMES):
+                many = ext_s(torch.as_tensor(np.stack(
+                    [seqs[k].images[f] for k in range(DP_COMPARE)])).cuda())
+                one = ext_1(torch.as_tensor(seqs[s].images[f]).cuda())
+                differ += int(((many.desc[s] != one.desc).any(-1) &
+                               one.valid).sum())
+                total += int(one.valid.sum())
+                dang = max(dang, float((many.angle[s] - one.angle)[
+                    one.valid].abs().max()))
+            msg += (f"; {differ} of {total} descriptors differ over "
+                    f"{DP_FRAMES} frames, keypoint angles by up to "
+                    f"{dang:.3g} rad")
+            check(kf_b == kf_a and abs(ates[s] - ate_a) <= DP_ATE_MARGIN_M,
+                  msg)
+        print(msg, flush=True)
+
+
+def _dp_no_collective(dp, cfg, seqs):
+    """The rank's step over its shard (`shard_batch`, `build_sharded_step`)
+    on a 1-rank gloo group: no collective in two profiled steps, while an
+    all-reduce of a CUDA tensor in the same kind of trace is counted."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from orb_slam2_tpu_torch.distributed.launch import free_port
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    dist.init_process_group("gloo", init_method="tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        g = dist.group.WORLD
+        x = torch.ones(3, device="cuda")
+        with profile(activities=acts) as prof:
+            dist.all_reduce(x, group=g)
+            torch.cuda.synchronize()
+        seen = dp.collective_ops_in_trace(prof)
+        check(seen >= 1 and bool((x == 1).all()),
+              f"dp: an all-reduce of a CUDA tensor on a gloo group counted "
+              f"{seen} collectives and gave {x.tolist()}")
+        S = 2
+        stack = lambda k: dp.shard_batch(torch.as_tensor(np.stack(
+            [np.asarray(getattr(seqs[s], k)[:3], np.float32)
+             for s in range(S)])).cuda(), g)
+        imgs, depths, stamps = stack("images"), stack("depths"), \
+            stack("timestamps")
+        init_fn, step_fn = dp.build_sharded_step(cfg, g, "cuda")
+        state, ts = dp.shard_batch(dp.make_batch_states(cfg, S, "cuda"), g)
+        state, ts = init_fn(state, ts, imgs[:, 0], depths[:, 0])
+        with profile(activities=acts) as prof:
+            for f in (1, 2):
+                fid = torch.full((S,), f, dtype=torch.int32, device="cuda")
+                state, ts, _ = step_fn(state, ts, imgs[:, f], depths[:, f],
+                                       fid, stamps[:, f])
+            torch.cuda.synchronize()
+        n_coll = dp.collective_ops_in_trace(prof)
+    finally:
+        dist.destroy_process_group()
+    print(f"dp: build_sharded_step on a 1-rank gloo group, two profiled "
+          f"steps of S={S}: {n_coll} collective events (an all-reduce of a "
+          f"CUDA tensor in the same kind of trace: {seen})", flush=True)
+    check(n_coll == 0, f"dp: the sharded step issued {n_coll} collectives")
+
+
+def phase_dp(dp, tracking, checkpoint, evaluate, fast_cuda,
+             build_atlas_extractor, cfg, seqs, levels, counters, map_path):
+    """Phase 18: S RGB-D sequences stepped together at full width, S in
+    DP_SIZES.  Saves the S = 1 run's map (sequence 0) to `map_path`.
+    Returns (launches of each run, by path; FAST rows at 8·S planes)."""
+    from orb_slam2_tpu_torch.map.state import MapState
+    H, W = cfg.camera.height, cfg.camera.width
+    # FAST on the S-image atlases of frame 0: bit-exact, timed, bounded
+    atlases = []
+    for S in (4, 8):
+        img = torch.as_tensor(np.stack([seqs[s].images[0]
+                                        for s in range(S)])).cuda()
+        _, atlas = build_atlas_extractor(cfg.orb, H, W, "cuda", n_images=S,
+                                         return_atlas=True)(img)
+        atlases.append((f"dp S={S}, {8 * S} planes 640x480", levels, S,
+                        atlas))
+    fast_rows = check_fast(fast_cuda, atlases)
+    check(all(r["exact"] for r in fast_rows),
+          "dp: fast_nms disagrees with its plain version on an S-image atlas")
+    for r in fast_rows:
+        share = "not measured" if r["device_ms"] is None else \
+            f"{r['bound_ms'] / r['device_ms']:.3f}"
+        print(f"  dp FAST {r['name']}: the bound over the device time "
+              f"{share}", flush=True)
+    launches, fps = {}, {}
+    steps = DP_FRAMES - 1
+    for S in DP_SIZES:
+        if S == max(DP_SIZES):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        r = _dp_run(dp, tracking, cfg, seqs, list(range(S)), counters,
+                    DP_PROFILED if S == DP_COMPARE else 0)
+        launches[f"dp_s{S}"] = r["launches"]
+        stepped = S * steps
+        fallbacks = r["track_calls"] - stepped
+        check(r["launches"]["fast_nms"] == DP_FRAMES and
+              r["planes"] == 8 * S * DP_FRAMES,
+              f"dp S={S}: {r['launches']['fast_nms']} FAST launches over "
+              f"{r['planes']} planes, not one over {8 * S} a step")
+        check(r["launches"]["pose_lm"] == r["calls"] ==
+              2 * stepped + fallbacks,
+              f"dp S={S}: pose_lm launches {r['launches']['pose_lm']}, CUDA "
+              f"calls {r['calls']}, not 2 x {stepped} stepped frames + "
+              f"{fallbacks} reference-keyframe fallbacks")
+        res = _dp_ate(dp, evaluate, seqs, range(S), r)
+        for s, (n, ate) in enumerate(res):
+            check(n >= DEPTH_TRACKED_MIN_FRAC * DP_FRAMES and
+                  ate <= DEPTH_ATE_GATE_M["rgbd"],
+                  f"dp S={S} sequence {s}: tracked {n}/{DP_FRAMES}, metric "
+                  f"ATE {ate} m")
+        window = r["ms"][1:]
+        fps[S] = S * len(window) / (sum(window) / 1e3)
+        print(f"dp S={S}: step ms mean {statistics.mean(window):.2f} "
+              f"(median {statistics.median(window):.2f}, steps 2-"
+              f"{len(r['ms'])}), total frames/s {fps[S]:.2f} "
+              f"(x{fps[S] / fps[min(DP_SIZES)]:.3f} of S=1); tracked "
+              f"{[n for n, _ in res]} of {DP_FRAMES}, metric ATE "
+              f"{[round(a, 6) for _, a in res]} m, keyframes "
+              f"{[int(v) for v in r['state'].kf_valid.sum(1)]}; launches "
+              f"fast_nms {r['launches']['fast_nms']} over {r['planes']} "
+              f"planes, pose_lm {r['launches']['pose_lm']} = 2 x {stepped} "
+              f"stepped frames + {fallbacks} fallbacks", flush=True)
+        if S == 1:
+            checkpoint.save_map(MapState(*(x[0] for x in r["state"])),
+                                map_path)
+        if S == DP_COMPARE:
+            kernels = [e for e in r["prof"].key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            dev_ms = sum(float(getattr(e, "self_device_time_total", 0.0))
+                         for e in kernels) / 1e3 / DP_PROFILED
+            print(f"dp S={S}: device {dev_ms:.3f} ms a step over the last "
+                  f"{DP_PROFILED} steps (profiled), idle share "
+                  f"{1.0 - dev_ms / statistics.mean(window):.3f} against "
+                  "the timed steps' mean", flush=True)
+            _dp_against_alone(dp, tracking, evaluate, build_atlas_extractor,
+                              cfg, seqs, r, [a for _, a in res], counters)
+        del r
+    print(f"dp S={max(DP_SIZES)}: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB",
+          flush=True)
+    _dp_no_collective(dp, cfg, seqs)
+    return launches, fast_rows
+
+
+def _centers(lie, T):
+    T = torch.as_tensor(T)
+    return (-lie.quat_rotate(lie.quat_conj(T[:, :4]), T[:, 4:7])).numpy()
+
+
+def _pose_err(lie, evaluate, a, b):
+    """tests/test_ba.py's `_pose_err(align_scale=False)`: max camera-centre
+    distance after a rigid alignment."""
+    ca, cb = _centers(lie, a), _centers(lie, b)
+    s, R, t = evaluate.umeyama(ca, cb, False)
+    return float(np.linalg.norm((s * (R @ ca.T)).T + t - cb, axis=-1).max())
+
+
+def phase_sharded(launch, evaluate, cfg, map_path: str, tmp: str):
+    """Phase 19: `distributed/launch.py` spawns SHARD_RANKS gloo ranks on
+    the one card (CUDA tensors; SLAM_* set, `init_multihost` joins them);
+    each sharded solver, twice, against the single-rank solver here."""
+    from orb_slam2_tpu_torch import convert
+    from orb_slam2_tpu_torch.ba import local as ba_local
+    from orb_slam2_tpu_torch.ba import posegraph, schur
+    from orb_slam2_tpu_torch.core import lie
+    from orb_slam2_tpu_torch.map import checkpoint
+    obs, _, _ = launch.make_ba_problem(n_cams=64, n_pts=4096, noise_px=0.4,
+                                       pose_noise=0.02, pt_noise=0.02,
+                                       seed=11)
+    ring, _ = launch.make_ring_problem(n=48, drift=0.015, seed=2)
+    D = cfg.cap.max_obs_per_point
+    jobs = [dict(name="obs", kind="obs", problem=obs, **SHARD_BA_ITERS),
+            dict(name="pt", kind="pt", map=map_path, cfg=cfg, D=D,
+                 **SHARD_BA_ITERS),
+            dict(name="pg", kind="pg", problem=ring, **SHARD_PG_ITERS)]
+    t0 = time.time()
+    try:
+        launch.spawn(launch.solve_worker, SHARD_RANKS,
+                     (jobs, tmp, "cuda", "gloo", 2, True),
+                     timeout=SHARD_TIMEOUT_S)
+    except (RuntimeError, TimeoutError) as e:
+        raise PhaseError(f"sharded solvers: {e}") from e
+    wall = time.time() - t0
+    ranks = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+             for r in range(SHARD_RANKS)]
+    for r, rank in enumerate(ranks):
+        marks = ", ".join(f"{k} +{v - t0:.1f} s" for k, v in zip(
+            ["started", "joined"] + [j["name"] for j in jobs],
+            rank["timeline"]))
+        print(f"  rank {r}: {marks}", flush=True)
+    singles = {
+        "obs": convert.ba_problem_from_numpy(obs, "cuda"),
+        "pt": ba_local.build_global_problem_point_major(
+            checkpoint.load_map(map_path, "cuda"), cfg),
+        "pg": convert.pose_graph_problem_from_numpy(ring, "cuda")}
+    print(f"sharded solvers: {SHARD_RANKS} gloo ranks on the card, CUDA "
+          f"tensors, spawned and joined in {wall:.1f} s", flush=True)
+    for job in jobs:
+        name = job["name"]
+        prob = singles[name]
+        outs, ms = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "pg":
+                nodes, _ = posegraph.optimize_pose_graph(prob,
+                                                         **SHARD_PG_ITERS)
+                outs.append({"nodes": nodes.cpu().numpy()})
+            else:
+                res = schur.ba_solve(prob, **SHARD_BA_ITERS)
+                outs.append({k: v.cpu().numpy()
+                             for k, v in res._asdict().items()})
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        r0 = ranks[0]
+        keys = [k for k in r0 if k.startswith(name + ".") and
+                k.endswith(".0")]
+        for k in keys:
+            for r in ranks:
+                check(np.array_equal(r[k], r[k[:-1] + "1"]),
+                      f"sharded {name}: {k} differs between two runs")
+                check(np.array_equal(r[k], r0[k]),
+                      f"sharded {name}: {k} differs between the ranks")
+        for k in outs[0]:
+            check(np.array_equal(outs[0][k], outs[1][k]),
+                  f"single-rank {name}: {k} differs between two runs")
+        pose_tol, point_tol = SHARD_TOL[name]
+        if name == "pg":
+            err = float(np.linalg.norm(r0["pg.nodes.0"] - outs[0]["nodes"],
+                                       axis=-1).max())
+            check(err < pose_tol, f"sharded pose graph: nodes {err} from "
+                  "the single-rank solve")
+            detail = f"nodes max |d| {err:.3g}"
+        else:
+            perr = _pose_err(lie, evaluate, r0[f"{name}.cam_pose.0"],
+                             outs[0]["cam_pose"])
+            n = outs[0]["points"].shape[0]
+            pts = float(np.abs(r0[f"{name}.points.0"][:n] -
+                               outs[0]["points"]).max())
+            same_in = np.array_equal(
+                r0[f"{name}.inlier.0"][:outs[0]["inlier"].shape[0]],
+                outs[0]["inlier"])
+            check(perr < pose_tol and pts <= point_tol and same_in,
+                  f"sharded {name} BA: poses {perr}, points {pts}, inlier "
+                  f"masks equal {same_in}")
+            detail = (f"poses {perr:.3g}, points {pts:.3g}, inlier masks "
+                      "equal")
+        coll = r0[f"{name}.allreduce_ms"]
+        print(f"  {name}: sharded {statistics.median(r0[name + '.ms']):.1f}"
+              f" ms (rank 0, median of 2), single-rank "
+              f"{statistics.median(ms):.1f} ms; {len(coll)} all-reduces, "
+              f"{coll.sum():.1f} ms of them timed alone; against the "
+              f"single-rank solve {detail} (tolerance {pose_tol}"
+              f"{'' if point_tol is None else f' / {point_tol}'}); "
+              "bit-equal on repeat and across ranks", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false")
@@ -1194,6 +1590,8 @@ def main() -> int:
                                                   pyramid)
         from orb_slam2_tpu_torch.frontend.atlas import build_atlas_extractor
         from orb_slam2_tpu_torch.io import datasets, evaluate, synthetic
+        from orb_slam2_tpu_torch.distributed import dp, launch
+        from orb_slam2_tpu_torch.map import checkpoint
         from orb_slam2_tpu_torch.pipeline import mapping, tracking
         from orb_slam2_tpu_torch.pipeline.system import SLAM
         from orb_slam2_tpu_torch.solvers import pose_lm_cuda, pose_opt
@@ -1237,6 +1635,14 @@ def main() -> int:
             synthetic.xyz_trajectory(STEREO_FRAMES), st_cfg.camera.baseline))
     kitti_f = render.submit(kitti_sequence, synthetic, kitti_cam)
     render.shutdown(wait=False)
+    # phase 18's sequences, in two processes of their own
+    dp_render = ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"))
+    dp_f = [dp_render.submit(synthetic.generate, rgbd_cfg.camera,
+                             n_frames=DP_FRAMES, n_points=500,
+                             trajectory="xyz", seed=s)
+            for s in range(max(DP_SIZES))]
+    dp_render.shutdown(wait=False)
     try:
         # 2. build every kernel at once (one nvcc each): FAST, the pose LM
         # as the source has it, and the pose LM at each cluster size
@@ -1400,6 +1806,22 @@ def main() -> int:
             level_shapes(kitti_cam.height, kitti_cam.width), 2,
             kitti_atlas)])
         check(rows[-1]["exact"], "fast_nms disagrees on the KITTI atlas")
+
+        # 18. S RGB-D sequences stepped together, 19. the sharded solvers
+        t0 = time.perf_counter()
+        dp_seqs = [f.result() for f in dp_f]
+        print(f"dp sequences rendered ({time.perf_counter() - t0:.1f} s "
+              "waited)", flush=True)
+        with tempfile.TemporaryDirectory(dir=here, prefix="_smoke_") as tmp:
+            map_path = os.path.join(tmp, "dp_seq0_map.npz")
+            dp_launches, dp_rows = phase_dp(
+                dp, tracking, checkpoint, evaluate, fast_cuda,
+                build_atlas_extractor, rgbd_cfg, dp_seqs, main_levels,
+                counters, map_path)
+            launches.update(dp_launches)
+            rows += dp_rows
+            del dp_seqs
+            phase_sharded(launch, evaluate, rgbd_cfg, map_path, tmp)
 
         # 4 (continued). the pose LM on a problem of the stereo run and on
         # an N = 2048 one of the KITTI run

@@ -18,7 +18,7 @@ from typing import NamedTuple
 import torch
 from torch.func import jacfwd, vmap
 
-from orb_slam2_tpu_torch.ba.schur import SegmentSum
+from orb_slam2_tpu_torch.ba.schur import SegmentSum, psum
 from orb_slam2_tpu_torch.core import lie
 
 
@@ -45,9 +45,13 @@ def _f(xi_i, xi_j, S_i, S_j, S_m):
 
 
 def optimize_pose_graph(prob: PoseGraphProblem, n_outer: int = 20,
-                        n_cg: int = 40, lam0: float = 1e-6):
+                        n_cg: int = 40, lam0: float = 1e-6, group=None):
     """LM with PCG; returns (optimized nodes [K, 8], cost after each
-    step [n_outer])."""
+    step [n_outer]).
+
+    With a process `group`, each rank holds a share of the edges
+    (distributed/posegraph.py): every per-node sum over edges and the LM
+    costs are summed over the group, so all ranks step the same nodes."""
     dev = prob.nodes.device
     Kn = prob.nodes.shape[0]
     var = prob.node_valid & ~prob.node_fixed
@@ -64,7 +68,7 @@ def optimize_pose_graph(prob: PoseGraphProblem, n_outer: int = 20,
     eye7 = torch.eye(7, device=dev)
 
     def seg2(vi, vj):
-        return seg_i(vi) + seg_j(vj)
+        return psum(seg_i(vi) + seg_j(vj), group)
 
     def residuals_and_jac(nodes):
         Si, Sj = nodes[ei], nodes[ej]
@@ -113,9 +117,9 @@ def optimize_pose_graph(prob: PoseGraphProblem, n_outer: int = 20,
         dx = x * mask7
         new_nodes = torch.where(vcol, lie.sim3_retract(nodes, dx), nodes)
 
-        cost_old = torch.sum(torch.sum(r * r, -1) * w)
+        cost_old = psum(torch.sum(torch.sum(r * r, -1) * w), group)
         r_new = vmap(_f)(z, z, new_nodes[ei], new_nodes[ej], prob.edge_meas)
-        cost_new = torch.sum(torch.sum(r_new * r_new, -1) * w)
+        cost_new = psum(torch.sum(torch.sum(r_new * r_new, -1) * w), group)
         ok = (cost_new < cost_old) & torch.all(torch.isfinite(new_nodes))
         nodes = torch.where(ok, new_nodes, nodes)
         lam = torch.clamp(torch.where(ok, lam * 0.3, lam * 8.0), 1e-12, 1e6)

@@ -26,6 +26,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from orb_slam2_tpu_torch.core import lie
 
@@ -152,6 +153,16 @@ class SegmentSum:
         return padded[self.table].sum(1)
 
 
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum `x` over the ranks of `group` (one SUM all-reduce); with no
+    group, `x` itself.  The sharded solvers' only collective."""
+    if group is None:
+        return x
+    x = x.contiguous()
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
+
+
 # relative robust-cost improvement below which the dense LM stops early
 DENSE_STOP_TOL = 1e-3
 
@@ -160,7 +171,7 @@ def ba_solve_dense(prob: BAProblem, pt_obs_r: torch.Tensor, n_per_cam: int,
                    n_outer: int = 10, huber_delta2: float = 5.991,
                    use_huber: bool = True, lam0=1e-4,
                    chi2_th_mono: float = 5.991, chi2_th_stereo: float = 7.815,
-                   chunk: int = 2048) -> BAResult:
+                   chunk: int = 2048, group=None) -> BAResult:
     """LM with an explicitly materialized Schur reduced camera system
 
         S = Hcc + lam I - sum_p W_p (Hpp_p + lam I)^-1 W_p^T
@@ -168,7 +179,12 @@ def ba_solve_dense(prob: BAProblem, pt_obs_r: torch.Tensor, n_per_cam: int,
     built from per-point whitened camera blocks (S_corr = G^T G) and solved
     directly.  Observations are camera-major (obs_cam = repeat(arange(C),
     n_per_cam)); `pt_obs_r` [P, D] lists each point's observation rows (-1
-    none); obs_w is nonzero only for rows listed there."""
+    none); obs_w is nonzero only for rows listed there.
+
+    With a process `group`, each rank holds a share of the observation
+    rows: the camera-side sums, the Schur correction and the LM costs are
+    summed over the group before the solve (the point side must be
+    replicated or owner-complete on each rank)."""
     dev = prob.points.device
     C = prob.cam_pose.shape[0]
     P = prob.points.shape[0]
@@ -189,7 +205,8 @@ def ba_solve_dense(prob: BAProblem, pt_obs_r: torch.Tensor, n_per_cam: int,
     var_mask = var6[:, None] & var6[None, :]
 
     def seg_cam(vals):
-        return vals.reshape((C, n_per_cam) + vals.shape[1:]).sum(1)
+        return psum(vals.reshape((C, n_per_cam) + vals.shape[1:]).sum(1),
+                    group)
 
     def seg_pt(vals):
         g = vals[rs]
@@ -233,6 +250,7 @@ def ba_solve_dense(prob: BAProblem, pt_obs_r: torch.Tensor, n_per_cam: int,
         rhs = bc - seg_cam(yb)
         rhs = torch.where(prob.cam_var[:, None], rhs, 0.0)
 
+        S_corr = psum(S_corr, group)
         Hcc_big = torch.zeros((C, 6, C, 6), device=dev)
         Hcc_big[cam_ids, :, cam_ids, :] = Hcc + lam * eye6
         S = Hcc_big.reshape(C * 6, C * 6) - S_corr
@@ -249,10 +267,10 @@ def ba_solve_dense(prob: BAProblem, pt_obs_r: torch.Tensor, n_per_cam: int,
         new_cam = lie.se3_retract(cam_pose, dx)
         new_cam = torch.where(prob.cam_var[:, None], new_cam, cam_pose)
         new_points = points + dp
-        old_cost = torch.sum(chi2 * w_rob)
         new_chi2 = chi2_fn(new_cam, new_points)
         new_rob = _huber_w(new_chi2, delta2) if use_huber else 1.0
-        new_cost = torch.sum(new_chi2 * new_rob)
+        new_cost = psum(torch.sum(new_chi2 * new_rob), group)
+        old_cost = psum(torch.sum(chi2 * w_rob), group)
         ok = (new_cost < old_cost) & torch.all(torch.isfinite(new_cam)) & \
             torch.all(torch.isfinite(new_points))
         cam_pose = torch.where(ok, new_cam, cam_pose)
@@ -286,10 +304,19 @@ def ba_solve_dense(prob: BAProblem, pt_obs_r: torch.Tensor, n_per_cam: int,
 def ba_solve(prob: BAProblem, n_outer: int = 10, n_cg: int = 40,
              huber_delta2: float = 5.991, use_huber: bool = True,
              lam0=1e-4, chi2_th_mono: float = 5.991,
-             chi2_th_stereo: float = 7.815) -> BAResult:
+             chi2_th_stereo: float = 7.815, group=None,
+             pt_owner_complete: bool = False) -> BAResult:
     """LM for `n_outer` iterations, each camera step solved by `n_cg`
     iterations of block-Jacobi preconditioned CG on the matrix-free Schur
-    system S x = (Hcc + lam I) x - W Hpp^-1 W^T x."""
+    system S x = (Hcc + lam I) x - W Hpp^-1 W^T x.
+
+    With a process `group`, each rank holds a share of the observation
+    rows (distributed/ba.py) and every sum over rows is summed over the
+    group, so all ranks take the same steps.  With `pt_owner_complete`
+    (landmark-sharded: every row of a point lives on the rank that owns
+    the point) the point-side sums stay local; only the camera-side sums
+    and the LM costs cross ranks, and a non-finite point on any rank
+    vetoes the step."""
     dev = prob.points.device
     C = prob.cam_pose.shape[0]
     M = prob.points.shape[0]
@@ -297,8 +324,11 @@ def ba_solve(prob: BAProblem, n_outer: int = 10, n_cg: int = 40,
                          huber_delta2 * chi2_th_stereo / chi2_th_mono,
                          huber_delta2)
     active = prob.obs_w > 0
-    seg_cam = SegmentSum(prob.obs_cam, active, C)
-    seg_pt = SegmentSum(prob.obs_pid, active, M)
+    seg_cam_local = SegmentSum(prob.obs_cam, active, C)
+    seg_pt_local = SegmentSum(prob.obs_pid, active, M)
+    seg_cam = lambda v: psum(seg_cam_local(v), group)
+    seg_pt = seg_pt_local if pt_owner_complete else \
+        (lambda v: psum(seg_pt_local(v), group))
     eye3 = torch.eye(3, device=dev)
     eye6 = torch.eye(6, device=dev)
     cvar = prob.cam_var[:, None]
@@ -366,12 +396,15 @@ def ba_solve(prob: BAProblem, n_outer: int = 10, n_cg: int = 40,
         new_cam = lie.se3_retract(cam_pose, dx_cam)
         new_cam = torch.where(cvar, new_cam, cam_pose)
         new_points = points + dp
-        old_cost = torch.sum(chi2 * w_rob)
+        old_cost = psum(torch.sum(chi2 * w_rob), group)
         new_chi2 = chi2_fn(new_cam, new_points)
         new_rob = _huber_w(new_chi2, delta2) if use_huber else 1.0
-        new_cost = torch.sum(new_chi2 * new_rob)
+        new_cost = psum(torch.sum(new_chi2 * new_rob), group)
         ok = (new_cost < old_cost) & torch.all(torch.isfinite(new_cam)) & \
             torch.all(torch.isfinite(new_points))
+        if group is not None and pt_owner_complete:
+            # the rank's own points decide its flag; any failure vetoes
+            ok = psum((~ok).to(torch.int32), group) == 0
         cam_pose = torch.where(ok, new_cam, cam_pose)
         points = torch.where(ok, new_points, points)
         lam = torch.clamp(torch.where(ok, lam * 0.3, lam * 5.0), 1e-9, 1e6)

@@ -7,6 +7,11 @@ as `__version__` ignored), so a JAX map checkpoint loads into the port:
     data = np.load("map.npz")
     state = map_state_from_numpy(data, device="cuda")
 
+The same holds for stacked states with a leading sequence axis
+(`distributed/dp.py`): every field keeps its shape, [S, ...] included.
+`ba_problem_from_numpy` and `pose_graph_problem_from_numpy` take a solver
+problem's fields (the JAX `BAProblem`'s / `PoseGraphProblem`'s as numpy
+arrays), so one problem can be handed to both packages' solvers.
 `to_numpy` goes the other way for any of the port's NamedTuples.
 `vocabulary_from_numpy` takes a vocabulary's fields (the JAX `Vocabulary`'s
 as a dict, or its npz file), so one vocabulary can serve both packages.
@@ -19,6 +24,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from orb_slam2_tpu_torch.ba.posegraph import PoseGraphProblem
+from orb_slam2_tpu_torch.ba.schur import BAProblem
 from orb_slam2_tpu_torch.map.state import MapState
 from orb_slam2_tpu_torch.pipeline.frame import Frame
 from orb_slam2_tpu_torch.pipeline.tracking import TrackState
@@ -47,6 +54,20 @@ def frame_from_numpy(fields: Mapping[str, np.ndarray], device=None) -> Frame:
     return _from_numpy(Frame, fields, device)
 
 
+def ba_problem_from_numpy(fields: Mapping[str, np.ndarray],
+                          device=None) -> BAProblem:
+    """`bf` becomes a Python float, as the port's solvers take it."""
+    prob = _from_numpy(BAProblem, fields, device)
+    return prob._replace(bf=float(np.asarray(fields["bf"])))
+
+
+def pose_graph_problem_from_numpy(fields: Mapping[str, np.ndarray],
+                                  device=None) -> PoseGraphProblem:
+    """`fix_scale` becomes a Python bool, as the port's solver takes it."""
+    prob = _from_numpy(PoseGraphProblem, fields, device)
+    return prob._replace(fix_scale=bool(np.asarray(fields["fix_scale"])))
+
+
 def vocabulary_from_numpy(fields: Mapping) -> Vocabulary:
     """The port's Vocabulary from the fields of another one (e.g.
     `dataclasses.asdict` of the JAX package's, or `np.load` of its npz)."""
@@ -60,6 +81,7 @@ def vocabulary_from_numpy(fields: Mapping) -> Vocabulary:
 
 
 def to_numpy(state) -> dict:
-    """{field: numpy array} of a MapState / TrackState / Frame."""
+    """{field: numpy array} of a MapState / TrackState / Frame or a
+    solver problem."""
     return {f: np.asarray(v.detach().cpu().numpy()) if torch.is_tensor(v)
             else np.asarray(v) for f, v in zip(state._fields, state)}

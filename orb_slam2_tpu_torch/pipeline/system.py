@@ -90,15 +90,18 @@ def insert_kf(state: MapState, ts: TrackState, frame, cur_pids,
     return state, record_traj(state, ts, frame, True)
 
 
-def mapping_stage(state: MapState, ts: TrackState, cfg: SLAMConfig):
-    """Advance the pending keyframe's integration by one stage."""
+def mapping_stage(state: MapState, ts: TrackState, cfg: SLAMConfig,
+                  n_st: Optional[int] = None):
+    """Advance the pending keyframe's integration by one stage, of `n_st`
+    (by default `n_stages(cfg)`)."""
+    n_st = n_st or n_stages(cfg)
     k = max(int(ts.map_kf), 0)
-    stage = min(int(ts.map_stage), n_stages(cfg) - 1)
+    stage = min(int(ts.map_stage), n_st - 1)
     if stage == 0:
         state = mapping.triangulate_new_points(state, k, cfg)
     elif stage == 1:
         state = mapping.fuse_neighbors(state, k, cfg)
-    elif stage < n_stages(cfg) - 1:
+    elif stage < n_st - 1:
         state, lam = ba_local.local_ba(state, k, cfg, n_outer=BA_ITERS,
                                        lam0=ts.ba_lam, return_lam=True)
         ts = ts._replace(ba_lam=lam)
@@ -106,7 +109,7 @@ def mapping_stage(state: MapState, ts: TrackState, cfg: SLAMConfig):
         state = mapping.cull_points(state, k, cfg)
         state, ts = mapping.cull_redundant_keyframes(state, ts, k, cfg)
     nxt = stage + 1
-    done = nxt >= n_stages(cfg)
+    done = nxt >= n_st
     dev = ts.T.device
     ts = ts._replace(
         map_stage=torch.tensor(0 if done else nxt, dtype=torch.int32,

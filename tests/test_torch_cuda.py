@@ -99,12 +99,14 @@ def test_perlevel_extractor_kernel_matches_plain_on_card(preset):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("H,W,n_images", [(480, 640, 1), (240, 320, 1),
-                                          (480, 640, 2), (376, 1241, 2)])
+                                          (480, 640, 2), (376, 1241, 2),
+                                          (480, 640, 4), (480, 640, 8)])
 def test_fast_atlas_kernel_matches_plain_on_card(H, W, n_images):
     """All 8 levels of n_images images in one launch, bit-exact against the
     plain version level by level; seeded values also outside the levels,
     which neither may read.  376x1241 is the KITTI stereo pair: an odd
-    width, no level a multiple of the tile."""
+    width, no level a multiple of the tile; 4 and 8 images are the S-image
+    atlases of the dp step (distributed/dp.py), 32 and 64 planes."""
     _card()
     levels = pyramid.level_shapes(H, W, 8, 1.2)
     rng = np.random.RandomState(H + n_images)

@@ -1,0 +1,275 @@
+"""The port's data-parallel multi-sequence step (`distributed/dp.py`)
+against the JAX package's `build_dp_step`, on the CPU.
+
+Configuration: scripts/dp_slam_bench.py's `small_rgbd_cfg` (320x240, 500
+features, bf 16), copied.  Input: the JAX renderer's xyz sequences of
+seeds 0 and 1, N_FRAMES frames each.  The JAX side runs its `init_fn` and
+`step_fn` jitted, one sequence at a time: a vmapped S = 2 program takes
+~15 s longer to compile cold (63 s against 48 s on the CPU this was
+written on) and gives the same trajectories to 2.5e-6.  The port runs the
+two sequences as one S = 2 batch.  JAX compiles in a background thread
+(XLA's compiler releases the GIL) while the port's runs go ahead, so the
+tests that need JAX's results come last.
+
+Tolerances: the tracking status, the keyframe decision and the keyframe
+count exactly, inlier and map-point counts within 2% + 2, as in
+tests/test_torch_stereo.py's fused-step checks.  Trajectory rows within
+1e-3, as tests/test_torch_session.py holds a multi-frame run: one step
+from the same state agrees to 1e-4 there, but here each frame starts
+from the previous frame's pose and map, and a weak frame (129 inliers at
+frame 6 of seed 1) turns that round-off into 2.6e-4 on both JAX
+variants (vmapped and per-sequence agree to 2.5e-6).
+"""
+
+import datetime
+from concurrent.futures import ThreadPoolExecutor
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+from torch.profiler import ProfilerActivity, profile
+
+from orb_slam2_tpu import config as jconfig
+from orb_slam2_tpu.core import lie as jlie
+from orb_slam2_tpu.distributed import dp as jdp
+from orb_slam2_tpu.io import synthetic
+from orb_slam2_tpu.map import empty_map as jempty_map
+from orb_slam2_tpu.pipeline import tracking as jtracking
+from orb_slam2_tpu_torch import config as tconfig
+from orb_slam2_tpu_torch import convert
+from orb_slam2_tpu_torch.distributed import dp as tdp
+from orb_slam2_tpu_torch.distributed.launch import free_port
+from orb_slam2_tpu_torch.map.state import empty_map as tempty_map
+from orb_slam2_tpu_torch.pipeline import frame as tframe
+from orb_slam2_tpu_torch.pipeline.tracking import (HUD_N_INLIERS, HUD_N_KF,
+                                                   HUD_N_MP, HUD_NEED_KF,
+                                                   HUD_STATUS,
+                                                   empty_track_state)
+
+S = 2
+N_FRAMES = 8
+TRAJ_TOL = 1e-3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers on the machine's cores; the port's
+    small tensors gain nothing from intra-op threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def small_rgbd_cfg(m):
+    """scripts/dp_slam_bench.py:31-42 for package config module m."""
+    cam = m.CameraConfig(
+        fx=200.0, fy=200.0, cx=160.0, cy=120.0, width=320, height=240,
+        fps=30.0, bf=16.0, th_depth=35.0)
+    orb = m.ORBConfig(n_features=500, max_keypoints=512)
+    cap = m.Capacity(
+        max_keyframes=96, max_points=6144, max_obs_per_kf=512,
+        max_frames=512, local_ba_points=2048)
+    return m.SLAMConfig(sensor=m.RGBD, camera=cam, orb=orb, cap=cap)
+
+
+@pytest.fixture(scope="module")
+def batch():
+    """(images [S, F, H, W], depths, timestamps [S, F]) f32, F = N_FRAMES
+    and one more frame for the profiled step."""
+    cam = small_rgbd_cfg(jconfig).camera
+    seqs = [synthetic.generate(cam, n_frames=N_FRAMES + 1, n_points=300,
+                               trajectory="xyz", seed=s) for s in range(S)]
+    f32 = lambda a: np.asarray(a, np.float32)
+    return (f32([q.images for q in seqs]), f32([q.depths for q in seqs]),
+            f32([q.timestamps for q in seqs]))
+
+
+def _port_run(batch, seqs):
+    """The port's dp step over the sequences `seqs` as one batch: (state,
+    ts, hud [S, F-1, 5])."""
+    imgs, depths, ts_ = (torch.from_numpy(a[seqs]) for a in batch)
+    init_fn, step_fn = tdp.build_dp_step(small_rgbd_cfg(tconfig), "cpu")
+    state, ts = tdp.make_batch_states(small_rgbd_cfg(tconfig), len(seqs),
+                                      "cpu")
+    state, ts = init_fn(state, ts, imgs[:, 0], depths[:, 0])
+    huds = []
+    for f in range(1, N_FRAMES):
+        fid = torch.full((len(seqs),), f, dtype=torch.int32)
+        state, ts, hud = step_fn(state, ts, imgs[:, f], depths[:, f], fid,
+                                 ts_[:, f])
+        huds.append(hud)
+    return state, ts, torch.stack(huds, 1).numpy()
+
+
+@pytest.fixture(scope="module")
+def port(batch):
+    return _port_run(batch, [0, 1])
+
+
+def _compile_jax():
+    """JAX's dp init and step, jitted and compiled for one sequence."""
+    cfg = small_rgbd_cfg(jconfig)
+    init_fn, step_fn = jdp.build_dp_step(cfg)
+    st, ts = jempty_map(cfg), jtracking.empty_track_state(cfg)
+    img = jnp.zeros((cfg.camera.height, cfg.camera.width), jnp.float32)
+    return (jax.jit(init_fn).lower(st, ts, img, img).compile(),
+            jax.jit(step_fn).lower(st, ts, img, img, jnp.int32(0),
+                                   jnp.float32(0.0)).compile())
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_compiled():
+    """A future of `_compile_jax()`, started before the module's first
+    test."""
+    with ThreadPoolExecutor(1) as ex:
+        yield ex.submit(_compile_jax)
+
+
+@pytest.fixture(scope="module")
+def jax_runs(batch, jax_compiled):
+    """JAX's dp init and step, jitted, per sequence: [(state, ts, huds)]."""
+    cfg = small_rgbd_cfg(jconfig)
+    init_fn, step_fn = jax_compiled.result()
+    imgs, depths, ts_ = batch
+    out = []
+    for s in range(S):
+        st, ts = init_fn(jempty_map(cfg), jtracking.empty_track_state(cfg),
+                         jnp.asarray(imgs[s, 0]), jnp.asarray(depths[s, 0]))
+        huds = []
+        for f in range(1, N_FRAMES):
+            st, ts, hud = step_fn(st, ts, jnp.asarray(imgs[s, f]),
+                                  jnp.asarray(depths[s, f]), jnp.int32(f),
+                                  jnp.float32(ts_[s, f]))
+            huds.append(np.asarray(hud))
+        out.append((st, ts, np.stack(huds)))
+    return out
+
+
+def test_rgbd_frame_fn_over_s_images_equals_one_image(batch):
+    """One S-image call (one atlas program over S·L planes) gives, per
+    image, the one-image function's Frame bit for bit."""
+    cfg = small_rgbd_cfg(tconfig)
+    imgs, depths, ts_ = (torch.from_numpy(a) for a in batch)
+    f = 3
+    many = tframe.build_rgbd_frame_fn(cfg, "cpu", n_images=S)(
+        imgs[:, f], depths[:, f], torch.full((S,), f), ts_[:, f])
+    one = tframe.build_rgbd_frame_fn(cfg, "cpu")
+    for s in range(S):
+        single = one(imgs[s, f], depths[s, f], f, ts_[s, f])
+        assert int(single.n) > 400
+        for name, a, b in zip(single._fields, single, many):
+            assert torch.equal(a, b[s]), name
+
+
+@pytest.mark.parametrize("s", range(S))
+def test_s2_batch_equals_each_sequence_alone(batch, port, s):
+    """The S = 2 batch gives sequence s exactly what it gets alone
+    (S = 1): no write-back of one sequence reaches another."""
+    tst, tts, thud = port
+    ost, ots, ohud = _port_run(batch, [s])
+    np.testing.assert_array_equal(thud[s], ohud[0])
+    for a, b in ((tst, ost), (tts, ots)):
+        for f, x, y in zip(a._fields, a, b):
+            assert torch.equal(x[s], y[0]), f
+
+
+def test_dp_requires_rgbd():
+    cfg = small_rgbd_cfg(tconfig)
+    with pytest.raises(ValueError, match="RGB-D"):
+        tdp.build_dp_step(tconfig.SLAMConfig(camera=cfg.camera), "cpu")
+
+
+@pytest.fixture
+def one_rank_group():
+    """This process as a 1-rank gloo group."""
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+        rank=0, timeout=datetime.timedelta(seconds=60))
+    yield dist.group.WORLD
+    dist.destroy_process_group()
+
+
+def test_sharded_step_issues_no_collective(batch, port, one_rank_group):
+    """A profiled step of `build_sharded_step` on the rank's shard
+    (`shard_batch`) shows no collective, while an all-reduce in the same
+    kind of trace is counted."""
+    g = one_rank_group
+    cfg = small_rgbd_cfg(tconfig)
+    tst, tts, _ = port
+    state, ts = tdp.shard_batch((tst, tts), g)
+    imgs, depths, ts_ = (tdp.shard_batch(torch.from_numpy(a), g)
+                         for a in batch)
+    assert state.kf_pose.shape[0] == S
+    init_fn, step_fn = tdp.build_sharded_step(cfg, g, "cpu")
+    f = N_FRAMES
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _, _, hud = step_fn(state, ts, imgs[:, f], depths[:, f],
+                            torch.full((S,), f, dtype=torch.int32), ts_[:, f])
+    assert (hud[:, HUD_STATUS] == 2).all()
+    assert tdp.collective_ops_in_trace(prof) == 0
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        dist.all_reduce(torch.ones(3), group=g)
+    assert tdp.collective_ops_in_trace(prof) >= 1
+
+
+def test_make_batch_states_matches_jax():
+    """S stacked fresh states: JAX's shapes and dtypes (traced, not run),
+    every slot the one-sequence state (held against JAX's in
+    tests/test_torch_map.py)."""
+    jst, jts = jax.eval_shape(
+        lambda: jdp.make_batch_states(small_rgbd_cfg(jconfig), 3))
+    cfg = small_rgbd_cfg(tconfig)
+    tst, tts = tdp.make_batch_states(cfg, 3, "cpu")
+    one = (tempty_map(cfg, "cpu"), empty_track_state(cfg, "cpu"))
+    for j, t, o in ((jst, tst, one[0]), (jts, tts, one[1])):
+        for f, a, b, c in zip(t._fields, j, t, o):
+            assert tuple(a.shape) == tuple(b.shape), f
+            assert np.dtype(a.dtype) == convert.to_numpy(t)[f].dtype, f
+            for s in range(3):
+                assert torch.equal(b[s], c), f
+
+
+@pytest.mark.parametrize("s", range(S))
+def test_dp_step_matches_jax(port, jax_runs, s):
+    """Sequence s of the port's S = 2 run against JAX's init and step on
+    that sequence: every frame tracked by both, the same keyframes."""
+    tst, tts, thud = port
+    jst, jts, jhud = jax_runs[s]
+    assert int(jnp.sum(jst.kf_valid)) >= 2, "JAX made no keyframe"
+    th = thud[s]
+    assert (jhud[:, HUD_STATUS] == 2).all()
+    for col in (HUD_STATUS, HUD_NEED_KF, HUD_N_KF):
+        np.testing.assert_array_equal(th[:, col], jhud[:, col])
+    for col in (HUD_N_INLIERS, HUD_N_MP):
+        assert (np.abs(th[:, col] - jhud[:, col]) <=
+                0.02 * jhud[:, col] + 2).all(), col
+    np.testing.assert_allclose(tts.traj[s, :N_FRAMES].numpy(),
+                               np.asarray(jts.traj)[:N_FRAMES], rtol=0,
+                               atol=TRAJ_TOL)
+    assert int(tst.kf_valid[s].sum()) == int(jnp.sum(jst.kf_valid))
+    j_mp = int(jnp.sum(jst.mp_valid))
+    assert abs(int(tst.mp_valid[s].sum()) - j_mp) <= 0.02 * j_mp + 2
+    assert int(tts.map_stage[s]) == int(jts.map_stage)
+    assert int(tts.map_kf[s]) == int(jts.map_kf)
+
+
+def test_trajectories_match_jax_session_export(port, jax_runs):
+    """`trajectories`, per sequence, against the JAX session's export
+    formula (system.py:568-578: Tcr x the reference keyframe's pose,
+    inverted) on JAX's dp state: the same frames and timestamps, camera
+    centres within the trajectory tolerance."""
+    tst, tts, _ = port
+    for s, (t, twc) in enumerate(tdp.trajectories(tst, tts, N_FRAMES)):
+        jst, jts, _ = jax_runs[s]
+        traj = jts.traj[:N_FRAMES]
+        ref = jnp.clip(traj[:, 14].astype(jnp.int32), 0, None)
+        jtwc = jax.vmap(jlie.se3_inverse)(jax.vmap(jlie.se3_compose)(
+            traj[:, 7:14], jst.kf_pose[ref]))
+        ok = np.asarray((traj[:, 15] > 0.5) & (traj[:, 14] >= 0))
+        np.testing.assert_array_equal(t, np.asarray(traj[:, 16])[ok])
+        np.testing.assert_allclose(twc[:, 4:7], np.asarray(jtwc)[ok, 4:7],
+                                   rtol=0, atol=TRAJ_TOL)

@@ -59,7 +59,9 @@ def test_importing_the_port_loads_no_jax():
         "place.database", "pipeline.reloc", "pipeline.loopclosing",
         "ba.posegraph", "ba.async_gba", "solvers.epnp", "solvers.sim3",
         "solvers.pose_lm_cuda", "cuda_build", "frontend.extractor",
-        "viz.raster", "viz.viewer", "viz.ar", "io.ros")]
+        "viz.raster", "viz.viewer", "viz.ar", "io.ros", "distributed",
+        "distributed.runtime", "distributed.ba", "distributed.posegraph",
+        "distributed.dp", "distributed.launch")]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
             "import chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -83,8 +85,11 @@ def _builders():
                                                     build_stereo_frame_fn)
     from orb_slam2_tpu_torch.pipeline.system import DEFAULT_VOCAB, \
         build_full_step
+    from orb_slam2_tpu_torch.distributed.dp import (build_dp_step,
+                                                    make_batch_states)
     from orb_slam2_tpu_torch.place.vocab import Vocabulary, build_transform
     cfg = config.SLAMConfig()
+    rgbd = cfg.replace(sensor=config.RGBD)
     return {
         "build_atlas_extractor": lambda: build_atlas_extractor(cfg.orb, 48,
                                                                64),
@@ -97,6 +102,8 @@ def _builders():
         "build_full_step": lambda: build_full_step(cfg),
         "build_transform": lambda: build_transform(
             Vocabulary.load(DEFAULT_VOCAB)),
+        "build_dp_step": lambda: build_dp_step(rgbd),
+        "make_batch_states": lambda: make_batch_states(rgbd, 2),
     }
 
 
@@ -104,7 +111,8 @@ def _builders():
                                   "build_extractor_perlevel",
                                   "build_mono_frame_fn", "build_rgbd_frame_fn",
                                   "build_stereo_frame_fn", "build_full_step",
-                                  "build_transform"])
+                                  "build_transform", "build_dp_step",
+                                  "make_batch_states"])
 def test_builders_default_to_cuda(name, monkeypatch):
     """With no device named, a builder puts its constants on the card, so
     with no card it raises instead of running on the CPU."""
