@@ -7,9 +7,11 @@ from the repository root, on a machine with a CUDA card and nvcc.  Phases,
 each of which fails the run when it fails:
 
   1. environment: torch / CUDA versions, the card's name and power limit;
-  2. build: compile csrc/fast_nms.cu and csrc/pose_lm.cu with nvcc
-     (sm_90a), and the pose LM at each cluster size 1, 2, 4, 8, all at once
-     (one nvcc each), printing ptxas's register and shared-memory counts;
+  2. build: compile csrc/fast_nms.cu, csrc/pose_lm.cu and
+     csrc/graph_cond.cu (the CUDA graph IF nodes of core/control.py) with
+     nvcc (sm_90a), and the pose LM at each cluster size 1, 2, 4, 8, all at
+     once (one nvcc each), printing ptxas's register and shared-memory
+     counts;
   3. FAST kernel: the all-level FAST-9+NMS kernel against its plain
      PyTorch version on the card, bit-exact, on the level atlas of the main
      path (8 levels of 640x480), of the small configuration (8 levels of
@@ -30,9 +32,10 @@ each of which fails the run when it fails:
      features, 32768 map points, 512 keyframes) with the default vocabulary
      on, on the bench sequence (120 frames, 500 points, xyz trajectory,
      seed 0), through `SLAM.track_mono`; checks tracking rate, scale-aligned
-     ATE, that the state lives on the card, BoW on every keyframe, that
-     every pose LM went through its kernel and every frame's pyramid
-     through one FAST launch;
+     ATE, that the state lives on the card, BoW on every keyframe, one
+     graph launch a frame, at least two pose-LM kernel launches a tracked
+     frame and every frame's pyramid through one FAST launch (phase 20
+     holds the launches to the eager step's `pose_optimize` calls);
   6. relocalisation (tests/test_e2e.py test_relocalization_recovers at the
      default config): track, blind the camera for 4 frames, revisit; must
      recover without a reset, through the pose-LM kernel;
@@ -115,8 +118,24 @@ each of which fails the run when it fails:
      twice: bit-equal on repeat and across ranks, within
      tests/test_distributed.py's tolerances of the single-rank solve here;
      sharded and single-rank ms, all-reduces and their ms.
- Phase 3 also holds FAST bit-exact on the KITTI stereo pair's real atlas,
- and phase 4 the pose LM on an N = 2048 problem recorded in phase 12.
+ 20. one program: the mono cell (120 frames), the stereo and RGB-D cells
+     (60 frames) and the mono cell with frame_batch = 4, each twice on the
+     same inputs: through the session's captured program (its default on
+     the card) and through the eager step (`SLAM(..., capture=False)`).
+     Trajectories and states bit-identical (else the first differing field
+     is named and the ATEs agree within 1e-6 m); no synchronisation under
+     `torch.cuda.set_sync_debug_mode("error")` across the tracked frames
+     outside the host reactions; one graph launch a frame (a batch); the
+     kernels' device launch counts equal to the eager run's (one FAST
+     launch a frame, two pose LMs or more a tracked frame), and in the
+     eager run one pose LM launch for each `pose_optimize` call; frame ms
+     p50/p90/max, device ms a frame and idle share (torch.profiler over a
+     window) and peak memory of both.
+ Phases 1-19 run the session as users do, so through its captured
+ program; the kernels count their own launches on the device, so replays
+ count.  Phase 3 also holds FAST bit-exact on the KITTI stereo pair's real
+ atlas, and phase 4 the pose LM on an N = 2048 problem recorded in phase
+ 12 (recorded outside the capture, as the program is warmed up).
 
 Prints the card's name and power limit and a JSON line describing every
 ported kernel, then, as the last line, {"ok": true, "device": {...}}.  Exits
@@ -124,6 +143,7 @@ non-zero without that line when there is no CUDA device, the package is
 missing, or any phase fails.  Imports nothing of JAX.
 """
 
+import contextlib
 import dataclasses
 import json
 import multiprocessing
@@ -409,6 +429,20 @@ def queued_ms(fn, reps: int = 30) -> float:
     return statistics.median(ts)
 
 
+def replay_ms(fn, reps: int = 30) -> float:
+    """One call of `fn` captured as a CUDA graph, as the session's program
+    holds it: the median over `reps` replays of the time between two CUDA
+    events around one replay."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    out = time_ms(g.replay, reps=reps)
+    del g
+    return out
+
+
 def host_us(fn, n: int = 100) -> float:
     """Host microseconds a call takes to enqueue its work (no sync inside)."""
     for _ in range(3):
@@ -472,7 +506,7 @@ def check_fast(fast_cuda, atlases):
                        reps=5, warm=1)
         call = lambda: fast_cuda.fast_nms_atlas_cuda(atlas, levels)
         d_ms = device_ms(call, "fast_nms_atlas_kernel")
-        q_ms, h_us = queued_ms(call), host_us(call)
+        q_ms, h_us, r_ms = queued_ms(call), host_us(call), replay_ms(call)
         px = n_img * sum(h * w for h, w in levels)
         nbytes = px * FAST_IN_BYTES_PER_PX + \
             G * Hp * Wp * FAST_OUT_BYTES_PER_PLANE_PX
@@ -481,13 +515,15 @@ def check_fast(fast_cuda, atlases):
         bound_s = max(bytes_s, ops_s)
         rows.append(dict(name=name, exact=exact, err=err, ms=k_ms,
                          device_ms=d_ms, queued_ms=q_ms, host_us=h_us,
-                         plain_ms=p_ms, bound_ms=bound_s * 1e3,
+                         replay_ms=r_ms, plain_ms=p_ms,
+                         bound_ms=bound_s * 1e3,
                          bound_by="bytes" if bytes_s >= ops_s
                          else "operations"))
         print(f"  fast_nms {name} ({G} planes of {Hp}x{Wp}, {px} level px): "
               f"exact={exact} max_abs_err={err} call {k_ms:.4f} ms (kernel "
               f"on the device {_dev(d_ms)}, queued {q_ms:.5f} ms, host "
-              f"{h_us:.1f} us a call)  plain {p_ms:.4f} ms  bound "
+              f"{h_us:.1f} us a call, replayed from a graph {r_ms:.5f} "
+              f"ms)  plain {p_ms:.4f} ms  bound "
               f"{bound_s * 1e3:.5f} ms ({rows[-1]['bound_by']}: {nbytes} B, "
               f"{px * FAST_OPS_PER_PX} f32 ops)", flush=True)
     return rows
@@ -535,7 +571,7 @@ def check_pose_problems(pose_lm_cuda, pose_opt, problems):
             for b in range(B)], reps=3, warm=1)
         call = lambda: pose_lm_cuda.pose_lm_cuda(*args)
         d_ms = device_ms(call, "pose_lm_kernel")
-        q_ms, h_us = queued_ms(call), host_us(call)
+        q_ms, h_us, r_ms = queued_ms(call), host_us(call), replay_ms(call)
         # operations this data needs: a linearization over the active
         # points (bounded by the valid ones) at each iteration each problem
         # ran and at each round's start, plus the final classification;
@@ -552,7 +588,8 @@ def check_pose_problems(pose_lm_cuda, pose_opt, problems):
         bound_ms = max(bytes_s, ops_s) * 1e3
         rows.append(dict(name=name, err=err, agree=agree, dn=dn, same=same,
                          ms=k_ms, device_ms=d_ms, queued_ms=q_ms,
-                         host_us=h_us, plain_ms=p_ms, bound_ms=bound_ms,
+                         host_us=h_us, replay_ms=r_ms, plain_ms=p_ms,
+                         bound_ms=bound_ms,
                          bound_by="bytes" if bytes_s >= ops_s
                          else "operations"))
         print(f"  pose_lm {name} ({int((valid & st).sum())} stereo of "
@@ -561,7 +598,8 @@ def check_pose_problems(pose_lm_cuda, pose_opt, problems):
               f"{agree:.4f}, n_inliers within {dn}, two launches "
               f"bit-identical {same}; LM iterations {kit.tolist()}; call "
               f"{k_ms:.4f} ms (kernel on the device {_dev(d_ms)}, queued "
-              f"{q_ms:.5f} ms, host {h_us:.1f} us a call)  plain "
+              f"{q_ms:.5f} ms, host {h_us:.1f} us a call, replayed from a "
+              f"graph {r_ms:.5f} ms)  plain "
               f"{p_ms:.2f} ms  bound {bound_ms:.6f} ms ({ops:.4g} f32 ops "
               f"this data, {ops_max:.4g} at 4 x 10 iterations; {nbytes} B)",
               flush=True)
@@ -641,15 +679,17 @@ def phase_path(name, SLAM, cfg, seq, evaluate, counters, tracked_min,
     n_frames = len(seq.images)
     mono = cfg.sensor == 0
     planes = cfg.orb.n_levels * (2 if cfg.sensor == 1 else 1)
-    # counts zeroed just before the path, read just after
-    fast_cuda.launches = fast_cuda.planes = 0
-    pose_lm_cuda.launches = pose_opt.cuda_calls = 0
+    # counts zeroed just before the path, read just after (the kernels'
+    # own device counts: the session replays its captured program)
+    _zero(counters)
     t0 = time.perf_counter()
     slam = run_slam(SLAM, cfg, seq, n_frames, right=right)
     wall = time.perf_counter() - t0
-    launches = dict(fast_nms=fast_cuda.launches,
-                    pose_lm=pose_lm_cuda.launches)
-    calls, fast_planes = pose_opt.cuda_calls, fast_cuda.planes
+    launches = _read(counters)
+    fast_planes = fast_cuda.device_counts()[1]
+    check(slam.capture and slam.graph_replays == slam._n_dispatch,
+          f"{name}: {slam.graph_replays} graph replays for "
+          f"{slam._n_dispatch} dispatches (captured: {slam.capture})")
     check(launches["fast_nms"] == slam.frame_count,
           f"{name}: fast_nms launches {launches['fast_nms']} != one for "
           f"each of {slam.frame_count} frames")
@@ -674,9 +714,6 @@ def phase_path(name, SLAM, cfg, seq, evaluate, counters, tracked_min,
     ok = slam.ts.traj[:slam.frame_count, 15].cpu().numpy() > 0.5
     first = int(slam.state.kf_frame_id[1 if mono else 0])
     stepped = int(ok[first + 1:].sum())
-    check(launches["pose_lm"] == calls,
-          f"{name}: pose_lm launches {launches['pose_lm']} != {calls} CUDA "
-          "pose_optimize calls")
     check(launches["pose_lm"] >= 2 * stepped,
           f"{name}: pose_lm launches {launches['pose_lm']} < 2 x {stepped} "
           "tracked frames")
@@ -692,8 +729,8 @@ def phase_path(name, SLAM, cfg, seq, evaluate, counters, tracked_min,
           f"{int(slam.state.n_kf)} (all with BoW), map points "
           f"{int(slam.state.n_mp)}, {'' if mono else 'metric '}ATE "
           f"{ate:.6f} m; launches fast_nms {launches['fast_nms']} over "
-          f"{fast_planes} planes, pose_lm {launches['pose_lm']} ({calls} "
-          f"pose_optimize calls, {stepped} frames stepped)", flush=True)
+          f"{fast_planes} planes, pose_lm {launches['pose_lm']} ({stepped} "
+          f"frames stepped), {slam.graph_replays} graph replays", flush=True)
     return slam, launches
 
 
@@ -705,7 +742,7 @@ def phase_depth_path(name, SLAM, cfg, seq, right, evaluate, counters,
     problem; returns (launches, the recorded problem with the most stereo
     rows)."""
     recorded = pose_opt.recorded = []
-    mapping.depth_points = 0
+    mapping.depth_points.reset()
     try:
         slam, launches = phase_path(name, SLAM, cfg, seq, evaluate, counters,
                                     DEPTH_TRACKED_MIN_FRAC,
@@ -731,14 +768,23 @@ def phase_reloc(SLAM, cfg, synthetic, counters):
     check(slam.status == 2, f"status {slam.status} after 45 frames")
     kfs = int(slam.state.n_kf)
     check(kfs > 5, f"only {kfs} keyframes before the blind frames")
-    # count the kernel launches made inside relocalisation attempts
+    # count the kernel launches made inside relocalisation attempts (a
+    # host reaction, run eagerly) and their pose_optimize calls
     spent = []
     run_reloc = slam._run_reloc
 
     def counted(frame):
-        before = pose_lm_cuda.launches
-        out = run_reloc(frame)
-        spent.append(pose_lm_cuda.launches - before)
+        calls = []
+        inner = _count_calls(pose_opt, "pose_optimize", calls)
+        before = pose_lm_cuda.device_launches()
+        try:
+            out = run_reloc(frame)
+        finally:
+            pose_opt.pose_optimize = inner
+        spent.append(pose_lm_cuda.device_launches() - before)
+        check(len(calls) == spent[-1],
+              f"a relocalisation attempt made {len(calls)} pose_optimize "
+              f"calls but {spent[-1]} kernel launches")
         return out
 
     slam._run_reloc = counted
@@ -747,15 +793,12 @@ def phase_reloc(SLAM, cfg, synthetic, counters):
         slam.track_mono(blank, seq.timestamps[45] + 0.001 * (k + 1))
     slam.flush()
     check(slam.status != 2, "still OK on blank frames")
-    calls0, launches0 = pose_opt.cuda_calls, pose_lm_cuda.launches
     run_slam(SLAM, rcfg, seq, 55, start=38, slam=slam)
     check(slam.status == 2, "did not relocalise")
     check(int(slam.state.n_kf) >= kfs, "the map was reset")
     check(spent and all(s == 12 for s in spent),
           f"relocalisation attempts launched {spent} pose LMs, not 12 each "
           "(4 candidates x 3)")
-    check(pose_opt.cuda_calls - calls0 == pose_lm_cuda.launches - launches0,
-          "a pose LM bypassed the kernel")
     print(f"relocalisation: recovered after 4 blind frames, keyframes "
           f"{kfs} -> {int(slam.state.n_kf)}, {len(spent)} attempts, "
           f"pose_lm launches per attempt {spent}", flush=True)
@@ -792,23 +835,26 @@ def phase_loop(SLAM, cfg, synthetic, evaluate):
 
 
 def _zero(counters):
-    fast_cuda, pose_lm_cuda, pose_opt = counters
-    fast_cuda.launches = fast_cuda.planes = 0
-    pose_lm_cuda.launches = pose_opt.cuda_calls = 0
+    """Zero the kernels' launch counts, which each kernel keeps on the
+    device (replays of a captured graph included)."""
+    fast_cuda, pose_lm_cuda, _ = counters
+    fast_cuda.reset_device_counts()
+    pose_lm_cuda.reset_device_launches()
 
 
 def _read(counters):
-    fast_cuda, pose_lm_cuda, pose_opt = counters
-    return dict(fast_nms=fast_cuda.launches, pose_lm=pose_lm_cuda.launches)
+    """The kernels' launches since `_zero`, as they counted them on the
+    device."""
+    fast_cuda, pose_lm_cuda, _ = counters
+    return dict(fast_nms=fast_cuda.device_counts()[0],
+                pose_lm=pose_lm_cuda.device_launches())
 
 
-def _check_launched(name, counters, launches, frames):
-    """Both kernels launched in the run, every pose LM through its kernel,
-    at most one FAST launch a frame."""
+def _check_launched(name, launches, frames):
+    """Both kernels launched in the run, at most one FAST launch a
+    frame."""
     check(launches["fast_nms"] > 0 and launches["pose_lm"] > 0,
           f"{name}: a kernel was not launched ({launches})")
-    check(launches["pose_lm"] == counters[2].cuda_calls,
-          f"{name}: a pose LM bypassed its kernel")
     check(launches["fast_nms"] <= frames,
           f"{name}: {launches['fast_nms']} FAST launches for {frames} frames")
 
@@ -846,7 +892,7 @@ def phase_mono_loc(SLAM, cfg, seq, evaluate, counters, tmp):
           "mono localisation changed the map")
     check(n == b - a, f"mono localisation tracked {n}/{b - a}")
     check(ate <= LOC_ATE_GATE_M, f"mono localisation ATE {ate} m")
-    _check_launched("mono localisation", counters, launches, b - a)
+    _check_launched("mono localisation", launches, b - a)
     return launches
 
 
@@ -865,8 +911,9 @@ def phase_kitti(port_cli, mapping, tracking, pose_opt, evaluate, counters,
     print(f"KITTI directory: {2 * len(kseq.images)} PNGs of 1241x376 "
           f"written in {time.perf_counter() - t0:.2f} s", flush=True)
     recorded = pose_opt.recorded = []
-    tracking.need_close_frames = 0
-    mapping.depth_points = mapping.close_depth_points = 0
+    tracking.need_close_frames.reset()
+    mapping.depth_points.reset()
+    mapping.close_depth_points.reset()
     out = os.path.join(tmp, "kitti_traj.txt")
     torch.cuda.reset_peak_memory_stats()
     _zero(counters)
@@ -907,7 +954,7 @@ def phase_kitti(port_cli, mapping, tracking, pose_opt, evaluate, counters,
     check(abs(n_kf - JAX_KITTI[1]) <= JAX_KF_MARGIN,
           f"KITTI: {n_kf} keyframes (JAX {JAX_KITTI[1]})")
     check(made > 0, "KITTI: no close depth point was made")
-    _check_launched("KITTI", counters, launches, n_frames)
+    _check_launched("KITTI", launches, n_frames)
     n_valid = [int(a[5].sum()) for a in recorded]
     best = recorded[int(np.argmax(n_valid))]
     check(best[1].shape[0] == 2048, "KITTI: pose LM problems not N = 2048")
@@ -924,7 +971,8 @@ def phase_kitti_loc(SLAM, datasets, tracking, counters, kslam, root,
     loc.load_map(path)
     loc.activate_localization_mode()
     n_kf, n_mp = int(loc.state.n_kf), int(loc.state.n_mp)
-    tracking.vo_candidates = tracking.vo_inliers = 0
+    tracking.vo_candidates.reset()
+    tracking.vo_inliers.reset()
     a, b = KITTI_LOC_FRAMES
     _zero(counters)
     reader = datasets.SequenceReader(
@@ -944,7 +992,7 @@ def phase_kitti_loc(SLAM, datasets, tracking, counters, kslam, root,
     check(int(loc.state.n_kf) == n_kf and int(loc.state.n_mp) == n_mp,
           "KITTI localisation changed the map")
     check(used > 0, "KITTI localisation used no VO point")
-    _check_launched("KITTI localisation", counters, launches, b - a)
+    _check_launched("KITTI localisation", launches, b - a)
     return launches
 
 
@@ -981,7 +1029,7 @@ def phase_tum(port_cli, evaluate, counters, seq, cam, tmp):
     check(abs(n_kf - JAX_TUM[1]) <= JAX_KF_MARGIN,
           f"TUM: {n_kf} keyframes (JAX {JAX_TUM[1]})")
     check(kf_lines == n_kf, f"TUM: {kf_lines} keyframe lines for {n_kf}")
-    _check_launched("TUM", counters, launches, n_frames)
+    _check_launched("TUM", launches, n_frames)
     return launches
 
 
@@ -1006,9 +1054,10 @@ def phase_batch(SLAM, cfg, seq, counters):
 
         def on_reloc(force=False, slam=slam, events=events,
                      check_reloc=check_reloc):
-            ts = slam.ts
+            pending = slam._reloc_pending
             check_reloc(force)
-            if slam.ts is not ts:
+            if pending is not None and slam._reloc_pending is None and \
+                    slam.status == 2:
                 events.append((slam.frame_count, "relocalised"))
 
         def on_loops(force=False, slam=slam, events=events,
@@ -1042,7 +1091,7 @@ def phase_batch(SLAM, cfg, seq, counters):
               "reaction before it")
     check(int((ta[:, 15] > 0.5).sum()) >= TRACKED_MIN_FRAC * BATCH_FRAMES,
           "frame batching: the batched run lost track")
-    _check_launched("frame batching", counters, launches, BATCH_FRAMES)
+    _check_launched("frame batching", launches, BATCH_FRAMES)
     return launches
 
 
@@ -1148,7 +1197,7 @@ def phase_viz(SLAM, cfg, seq, counters, port_cli, tmp):
     launches = _read(counters)
     check(slam.device.type == "cuda", "AR session not on the card")
     check(slam.status == 2, f"AR session: status {slam.status}")
-    _check_launched("AR session", counters, launches, AR_FRAMES)
+    _check_launched("AR session", launches, AR_FRAMES)
     H, W = seq.images[0].shape
     lime = np.array([0, 255, 0], np.uint8)
 
@@ -1282,8 +1331,7 @@ def _dp_run(dp, tracking, cfg, seqs, seeds, counters, profiled=0):
             tracking.track_reference_keyframe = inner
     return dict(state=state, ts=ts, ms=ms, huds=np.stack(huds, 1),
                 prof=prof, launches=_read(counters),
-                planes=fast_cuda.planes, calls=counters[2].cuda_calls,
-                track_calls=len(calls))
+                planes=fast_cuda.device_counts()[1], track_calls=len(calls))
 
 
 def _dp_ate(dp, evaluate, seqs, seeds, run):
@@ -1422,11 +1470,10 @@ def phase_dp(dp, tracking, checkpoint, evaluate, fast_cuda,
               r["planes"] == 8 * S * DP_FRAMES,
               f"dp S={S}: {r['launches']['fast_nms']} FAST launches over "
               f"{r['planes']} planes, not one over {8 * S} a step")
-        check(r["launches"]["pose_lm"] == r["calls"] ==
-              2 * stepped + fallbacks,
-              f"dp S={S}: pose_lm launches {r['launches']['pose_lm']}, CUDA "
-              f"calls {r['calls']}, not 2 x {stepped} stepped frames + "
-              f"{fallbacks} reference-keyframe fallbacks")
+        check(r["launches"]["pose_lm"] == 2 * stepped + fallbacks,
+              f"dp S={S}: pose_lm launches {r['launches']['pose_lm']}, not "
+              f"2 x {stepped} stepped frames + {fallbacks} "
+              "reference-keyframe fallbacks")
         res = _dp_ate(dp, evaluate, seqs, range(S), r)
         for s, (n, ate) in enumerate(res):
             check(n >= DEPTH_TRACKED_MIN_FRAC * DP_FRAMES and
@@ -1580,12 +1627,151 @@ def phase_sharded(launch, evaluate, cfg, map_path: str, tmp: str):
               "bit-equal on repeat and across ranks", flush=True)
 
 
+# phase 20: the cells run captured and eager, and the windows of frames
+# timed (host clock, one synchronisation at each end) and profiled
+# (torch.profiler), each ONE_PROG_WINDOW frames, after the first 20
+ONE_PROG_WINDOW = 20
+ONE_PROG_ATE_TOL_M = 1e-6
+
+
+def _feed_one(slam, seq, right, f):
+    if slam.cfg.sensor == 1:
+        slam.track_stereo(seq.images[f], right[f], seq.timestamps[f])
+    elif slam.cfg.sensor == 2:
+        slam.track_rgbd(seq.images[f], seq.depths[f], seq.timestamps[f])
+    else:
+        slam.track_mono(seq.images[f], seq.timestamps[f])
+
+
+@contextlib.contextmanager
+def _no_sync():
+    """set_sync_debug_mode("error") inside: a synchronisation raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _one_program_run(SLAM, cfg, seq, right, capture, counters, frame_profile):
+    """One run of a phase 20 cell; returns the session and its numbers.
+    The captured run feeds every frame under set_sync_debug_mode("error"):
+    a synchronisation outside the session's host reactions raises.  The
+    eager run checks that each pose_optimize call was one kernel launch."""
+    n = len(seq.images)
+    w0, w1, w2 = 20, 20 + ONE_PROG_WINDOW, 20 + 2 * ONE_PROG_WINDOW
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    slam = SLAM(cfg, device="cuda", capture=capture)
+    track = lambda f: _feed_one(slam, seq, right, f)
+    guard = _no_sync if capture else contextlib.nullcontext
+    pose_opt, calls = counters[2], []
+    inner = None if capture else _count_calls(pose_opt, "pose_optimize",
+                                              calls)
+    try:
+        with guard():
+            for f in range(w0):
+                track(f)
+        wall_ms = frame_profile.wall_window(track, range(w0, w1), guard)
+        dev_ms, n_kernels, _, _ = frame_profile.profile_window(
+            track, range(w1, w2), guard)
+        with guard():
+            for f in range(w2, n):
+                track(f)
+    finally:
+        if inner is not None:
+            pose_opt.pose_optimize = inner
+    slam.flush()
+    launches = _read(counters)
+    if not capture:
+        check(launches["pose_lm"] == len(calls),
+              f"eager run: {launches['pose_lm']} pose LM launches for "
+              f"{len(calls)} pose_optimize calls")
+    times = [t * 1e3 for t in slam.timings[10:]]
+    qs = statistics.quantiles(times, n=10)
+    dev_ms /= ONE_PROG_WINDOW
+    return slam, dict(
+        launches=launches, p50=statistics.median(times), p90=qs[8],
+        max=max(times), wall_ms=wall_ms, device_ms=dev_ms,
+        idle=1.0 - dev_ms / wall_ms, kernels=n_kernels / ONE_PROG_WINDOW,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        replays=slam.graph_replays, dispatches=slam._n_dispatch)
+
+
+def phase_one_program(SLAM, cfg, st_cfg, rgbd_cfg, seq, st_seq, right,
+                      evaluate, counters, frame_profile):
+    """Phase 20: each cell through the captured program and the eager
+    step on the same inputs."""
+    cells = [("mono", cfg, seq, None), ("stereo", st_cfg, st_seq, right),
+             ("rgbd", rgbd_cfg, st_seq, None),
+             (f"mono frame_batch {BATCH}", cfg.replace(frame_batch=BATCH),
+              seq, None)]
+    out = {}
+    for name, c, sq, rt in cells:
+        g, gn = _one_program_run(SLAM, c, sq, rt, True, counters,
+                                 frame_profile)
+        e, en = _one_program_run(SLAM, c, sq, rt, False, counters,
+                                 frame_profile)
+        differ = [f"{st}.{f}" for st, a, b in
+                  (("state", g.state, e.state), ("ts", g.ts, e.ts))
+                  for f, x, y in zip(a._fields, a, b) if not torch.equal(x, y)]
+        ate_g = ate_of(g, sq, evaluate, align_scale=c.sensor == 0)
+        ate_e = ate_of(e, sq, evaluate, align_scale=c.sensor == 0)
+        pg, pe = g.poses_twc(), e.poses_twc()
+        same_traj = pg.shape == pe.shape and (pg == pe).all()
+        B = c.frame_batch
+        stepped = len(sq.images) - int(e.state.kf_frame_id[
+            1 if c.sensor == 0 else 0]) - 1
+        print(f"one program, {name}: {len(sq.images)} frames; captured: "
+              f"{gn['replays']} graph launches for {gn['dispatches']} "
+              f"dispatches (frame_batch {B}), frame ms p50 {gn['p50']:.2f} "
+              f"p90 {gn['p90']:.2f} max {gn['max']:.2f}, window wall "
+              f"{gn['wall_ms']:.3f} ms a frame, device {gn['device_ms']:.3f} "
+              f"ms a frame, idle {gn['idle']:.3f}, kernels a frame "
+              f"{gn['kernels']:.1f}, peak {gn['peak_gib']:.3f} GiB, "
+              f"launches {gn['launches']}; eager: frame ms p50 "
+              f"{en['p50']:.2f} p90 {en['p90']:.2f} max {en['max']:.2f}, "
+              f"window wall {en['wall_ms']:.3f} ms a frame, device "
+              f"{en['device_ms']:.3f} ms a frame, idle {en['idle']:.3f}, "
+              f"kernels a frame {en['kernels']:.1f}, peak "
+              f"{en['peak_gib']:.3f} GiB, launches {en['launches']}; "
+              f"trajectories {'bit-identical' if same_traj else 'differ'}, "
+              f"state fields differing {differ or 'none'}; ATE "
+              f"{ate_g[0]:.6f} / {ate_e[0]:.6f} m", flush=True)
+        check(gn["replays"] == gn["dispatches"] > 0,
+              f"{name}: {gn['replays']} graph launches for "
+              f"{gn['dispatches']} dispatches")
+        check(gn["dispatches"] == -(-g.frames_stepped // B),
+              f"{name}: {gn['dispatches']} graph launches for "
+              f"{g.frames_stepped} frames stepped {B} a program")
+        check(gn["launches"] == en["launches"],
+              f"{name}: device launch counts {gn['launches']} captured, "
+              f"{en['launches']} eager")
+        check(gn["launches"]["fast_nms"] == len(sq.images),
+              f"{name}: {gn['launches']['fast_nms']} FAST launches for "
+              f"{len(sq.images)} frames")
+        check(gn["launches"]["pose_lm"] >= 2 * stepped,
+              f"{name}: {gn['launches']['pose_lm']} pose LMs for {stepped} "
+              "stepped frames")
+        check(same_traj and not differ or
+              abs(ate_g[0] - ate_e[0]) <= ONE_PROG_ATE_TOL_M,
+              f"{name}: captured and eager runs differ ({differ}) beyond "
+              f"{ONE_PROG_ATE_TOL_M} m of ATE")
+        out[name] = dict(captured=gn, eager=en, identical=same_traj and
+                         not differ)
+        del g, e
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false")
     try:
         from orb_slam2_tpu_torch import cli as port_cli
-        from orb_slam2_tpu_torch import config, native_build
+        from orb_slam2_tpu_torch import (config, cuda_build, frame_profile,
+                                         native_build)
+        from orb_slam2_tpu_torch.core import control
         from orb_slam2_tpu_torch.frontend import (extractor, fast_cuda,
                                                   pyramid)
         from orb_slam2_tpu_torch.frontend.atlas import build_atlas_extractor
@@ -1649,6 +1835,7 @@ def main() -> int:
         t0 = time.perf_counter()
         jobs = [lambda: fast_cuda.build(verbose=True),
                 lambda: pose_lm_cuda.build(verbose=True),
+                lambda: cuda_build.build(control.SOURCE),
                 lambda: native_build.build("png_unfilter")] + [
             (lambda c=c: pose_lm_cuda.build(cluster=c)) for c in CLUSTERS]
         with ThreadPoolExecutor(len(jobs)) as ex:
@@ -1823,6 +2010,10 @@ def main() -> int:
             del dp_seqs
             phase_sharded(launch, evaluate, rgbd_cfg, map_path, tmp)
 
+        # 20. one program: captured against eager on each cell
+        phase_one_program(SLAM, cfg, st_cfg, rgbd_cfg, seq, st_seq, right,
+                          evaluate, counters, frame_profile)
+
         # 4 (continued). the pose LM on a problem of the stereo run and on
         # an N = 2048 one of the KITTI run
         pose_rows += check_pose_problems(pose_lm_cuda, pose_opt, [
@@ -1853,6 +2044,8 @@ def main() -> int:
                               for r in perlevel_rows},
         # one frame: the main path's atlas of 8 levels, one launch
         "ms": frame_row["ms"],
+        # the same launch replayed from a CUDA graph, as the session runs it
+        "replay_ms": frame_row["replay_ms"],
         "plain_ms": frame_row["plain_ms"],
         "bound_ms": frame_row["bound_ms"],
         "bound_by": frame_row["bound_by"],
@@ -1865,6 +2058,7 @@ def main() -> int:
         "launches_by_path": by_path("pose_lm"),
         "max_abs_err": max(r["err"] for r in pose_rows),
         "ms": main_row["ms"],
+        "replay_ms": main_row["replay_ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],

@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from orb_slam2_tpu_torch.ba.local import build_global_problem_point_major
+from orb_slam2_tpu_torch.ba.local import (build_global_problem_point_major,
+                                         point_major_widths)
 from orb_slam2_tpu_torch.ba.schur import ba_solve
 from orb_slam2_tpu_torch.config import SLAMConfig
 from orb_slam2_tpu_torch.core import lie
@@ -82,8 +83,14 @@ class AsyncGBA:
         self.active = False
 
     def start(self, state: MapState, total_iters: int):
-        self.prob = build_global_problem_point_major(state, self.cfg)
-        self.snap_kf, self.snap_mp = state.kf_valid, state.mp_valid
+        # a frozen snapshot: the session writes its state in place every
+        # frame, so the problem and the validity masks must not alias it
+        prob = build_global_problem_point_major(state, self.cfg)
+        self.prob = type(prob)(*(x.clone() if isinstance(x, torch.Tensor)
+                                 else x for x in prob))
+        self.widths = point_major_widths(state)
+        self.snap_kf = state.kf_valid.clone()
+        self.snap_mp = state.mp_valid.clone()
         self.carry = (self.prob.cam_pose, self.prob.points,
                       torch.tensor(1e-4, device=state.kf_pose.device))
         self.iters_left = total_iters
@@ -100,7 +107,8 @@ class AsyncGBA:
         res = ba_solve(self.prob._replace(cam_pose=cam_pose, points=points),
                        n_outer=self.iters_per_chunk, n_cg=self.n_cg,
                        lam0=lam, chi2_th_mono=self.cfg.ba.chi2_mono,
-                       chi2_th_stereo=self.cfg.ba.chi2_stereo)
+                       chi2_th_stereo=self.cfg.ba.chi2_stereo,
+                       widths=self.widths)
         self.carry = (res.cam_pose, res.points, res.lam)
         self.iters_left -= self.iters_per_chunk
         return self.iters_left <= 0

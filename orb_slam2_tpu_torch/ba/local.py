@@ -49,8 +49,9 @@ def build_local_problem(state: MapState, kf_id, cfg: SLAMConfig):
     P = min(cfg.cap.local_ba_points, M)
 
     nb = covisible_neighbors(state, kf_id, Lv - 1, min_weight=1)
-    local = torch.cat([torch.as_tensor(kf_id, device=dev).reshape(1).long(),
-                       nb])                                          # [Lv]
+    k1 = kf_id.reshape(1).long() if isinstance(kf_id, torch.Tensor) else \
+        torch.full((1,), kf_id, dtype=torch.int64, device=dev)
+    local = torch.cat([k1, nb])                                      # [Lv]
     local_ok = local >= 0
     lsafe = local.clamp(min=0)
 
@@ -178,6 +179,15 @@ def build_global_problem_point_major(state: MapState, cfg: SLAMConfig
         bf=cfg.camera.bf)
 
 
+def point_major_widths(state: MapState):
+    """`ba_solve`'s segment widths for a point-major problem: a point has
+    exactly D rows.  A camera's count is bounded only by its keypoints, N,
+    and a [K, N] table of 6x6 blocks would not fit at the KITTI preset
+    (2048 x 2048 x 36 floats), so that width is read when the solve is set
+    up (the global solves run outside the frame step)."""
+    return (None, state.mp_obs_kf.shape[1])
+
+
 def global_ba_cg(state: MapState, cfg: SLAMConfig, n_outer: int = 10,
                  n_cg: int = 50) -> MapState:
     """Full-map BA via the matrix-free CG solver on the point-major
@@ -185,7 +195,8 @@ def global_ba_cg(state: MapState, cfg: SLAMConfig, n_outer: int = 10,
     prob = build_global_problem_point_major(state, cfg)
     res = ba_solve(prob, n_outer=n_outer, n_cg=n_cg,
                    chi2_th_mono=cfg.ba.chi2_mono,
-                   chi2_th_stereo=cfg.ba.chi2_stereo)
+                   chi2_th_stereo=cfg.ba.chi2_stereo,
+                   widths=point_major_widths(state))
     kf_pose = torch.where(prob.cam_var[:, None], res.cam_pose, state.kf_pose)
     mp_pos = torch.where(state.mp_valid[:, None], res.points, state.mp_pos)
     return state._replace(kf_pose=kf_pose, mp_pos=mp_pos)

@@ -130,27 +130,44 @@ def _chol3x3(A):
 class SegmentSum:
     """Deterministic segment sum over the active rows of a problem.
 
-    Built once per problem (one host read: the widest segment): the active
-    rows are stably sorted by segment id into a padded [n, width] table of
-    row indices.  Inactive rows carry weight 0 and contribute exact zeros,
-    so leaving them out changes no sum."""
+    Built once per problem: the active rows are stably sorted by segment id
+    into a padded [n, width] table of row indices (inactive rows sort last,
+    onto a dropped segment n).  Inactive rows carry weight 0 and contribute
+    exact zeros, so leaving them out changes no sum.  `width`, the most
+    active rows of one segment, comes from the problem's layout when the
+    caller knows it (rows in a segment beyond it would be dropped); with
+    None the widest segment is read from the device, one host read."""
 
-    def __init__(self, ids: torch.Tensor, active: torch.Tensor, n: int):
-        rows = torch.nonzero(active).reshape(-1)
-        seg = ids[rows].long()
-        seg_sorted, order = torch.sort(seg, stable=True)
-        counts = torch.bincount(seg, minlength=n)
-        width = max(int(counts.max()) if rows.numel() else 0, 1)
+    def __init__(self, ids: torch.Tensor, active: torch.Tensor, n: int,
+                 width=None):
+        dev = ids.device
+        R = ids.shape[0]
+        seg = torch.where(active, ids.long(), n)
+        seg_sorted, rows = torch.sort(seg, stable=True)
+        counts = torch.zeros(n + 1, dtype=torch.int64, device=dev
+                             ).scatter_add_(0, seg, torch.ones_like(seg))
+        if width is None:
+            width = max(int(counts[:n].max()) if n else 0, 1)
         starts = torch.cumsum(counts, 0) - counts
-        rank = torch.arange(seg.numel(), device=ids.device) - starts[seg_sorted]
-        self.R = ids.shape[0]
-        self.table = torch.full((n, width), self.R, dtype=torch.int64,
-                                device=ids.device)
-        self.table[seg_sorted, rank] = rows[order]
+        rank = torch.arange(R, device=dev) - starts[seg_sorted]
+        keep = (seg_sorted < n) & (rank < width)
+        self.R = R
+        table = torch.full((n + 1, width), R, dtype=torch.int64, device=dev)
+        table[torch.where(keep, seg_sorted, n), rank.clamp(0, width - 1)] = \
+            torch.where(keep, rows, R)
+        self.table = table[:n]
 
     def __call__(self, vals: torch.Tensor) -> torch.Tensor:
         padded = torch.cat([vals, torch.zeros_like(vals[:1])])
         return padded[self.table].sum(1)
+
+
+def _scalar(v, dev) -> torch.Tensor:
+    """A float or a 0-d tensor as a float32 tensor on `dev`, without a
+    host-to-device copy."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=dev, dtype=torch.float32)
+    return torch.full((), float(v), dtype=torch.float32, device=dev)
 
 
 def psum(x: torch.Tensor, group) -> torch.Tensor:
@@ -281,8 +298,8 @@ def ba_solve_dense(prob: BAProblem, pt_obs_r: torch.Tensor, n_per_cam: int,
     # early-stopping LM (stop once an accepted step improves the robust cost
     # by < 0.1% after the third iteration), as masked updates
     cam_pose, points = prob.cam_pose, prob.points
-    lam = torch.as_tensor(lam0, dtype=torch.float32, device=dev)
-    prev_cost = torch.tensor(float("inf"), device=dev)
+    lam = _scalar(lam0, dev)
+    prev_cost = torch.full((), float("inf"), device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     for i in range(n_outer):
         c2, p2, l2, cost_after, ok = lm_step(cam_pose, points, lam)
@@ -305,7 +322,8 @@ def ba_solve(prob: BAProblem, n_outer: int = 10, n_cg: int = 40,
              huber_delta2: float = 5.991, use_huber: bool = True,
              lam0=1e-4, chi2_th_mono: float = 5.991,
              chi2_th_stereo: float = 7.815, group=None,
-             pt_owner_complete: bool = False) -> BAResult:
+             pt_owner_complete: bool = False, widths=(None, None)
+             ) -> BAResult:
     """LM for `n_outer` iterations, each camera step solved by `n_cg`
     iterations of block-Jacobi preconditioned CG on the matrix-free Schur
     system S x = (Hcc + lam I) x - W Hpp^-1 W^T x.
@@ -316,7 +334,9 @@ def ba_solve(prob: BAProblem, n_outer: int = 10, n_cg: int = 40,
     (landmark-sharded: every row of a point lives on the rank that owns
     the point) the point-side sums stay local; only the camera-side sums
     and the LM costs cross ranks, and a non-finite point on any rank
-    vetoes the step."""
+    vetoes the step.  `widths`: the most active rows of one camera and of
+    one point, where the problem's layout fixes them (`SegmentSum`); None
+    reads it from the device when the solve is set up."""
     dev = prob.points.device
     C = prob.cam_pose.shape[0]
     M = prob.points.shape[0]
@@ -324,8 +344,8 @@ def ba_solve(prob: BAProblem, n_outer: int = 10, n_cg: int = 40,
                          huber_delta2 * chi2_th_stereo / chi2_th_mono,
                          huber_delta2)
     active = prob.obs_w > 0
-    seg_cam_local = SegmentSum(prob.obs_cam, active, C)
-    seg_pt_local = SegmentSum(prob.obs_pid, active, M)
+    seg_cam_local = SegmentSum(prob.obs_cam, active, C, widths[0])
+    seg_pt_local = SegmentSum(prob.obs_pid, active, M, widths[1])
     seg_cam = lambda v: psum(seg_cam_local(v), group)
     seg_pt = seg_pt_local if pt_owner_complete else \
         (lambda v: psum(seg_pt_local(v), group))
@@ -411,7 +431,7 @@ def ba_solve(prob: BAProblem, n_outer: int = 10, n_cg: int = 40,
         return cam_pose, points, lam
 
     cam_pose, points = prob.cam_pose, prob.points
-    lam = torch.as_tensor(lam0, dtype=torch.float32, device=dev)
+    lam = _scalar(lam0, dev)
     for _ in range(n_outer):
         cam_pose, points, lam = lm_step(cam_pose, points, lam)
 

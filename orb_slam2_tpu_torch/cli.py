@@ -7,8 +7,10 @@ and the synthetic sequence behind one entry point:
     tpu-slam-torch run --dataset kitti --sensor stereo --path <seq> --settings KITTI00-02.yaml
     tpu-slam-torch run --dataset synthetic --sensor mono --frames 120
     tpu-slam-torch view --map map.npz --traj CameraTrajectory.txt --out map.png
+    tpu-slam-torch bench [--device cpu]
 
-`run` runs on the CUDA card unless `--device` names another device.  The
+`run` and `bench` run on the CUDA card unless `--device` names another
+device; `bench` is orb_slam2_tpu_torch/bench.py (one JSON line).  The
 trajectory goes to `--output` (default CameraTrajectory.txt) in TUM format,
 or in KITTI format for `--dataset kitti`.  `view` renders a saved map (the
 npz of `SLAM.save_map`, either package's) with an optional TUM trajectory,
@@ -147,9 +149,19 @@ def cmd_view(args):
     return out
 
 
+def cmd_bench(args):
+    """The port's benchmark run (orb_slam2_tpu_torch/bench.py, the
+    counterpart of the root bench.py that JAX cli.py:138 runs); returns
+    its JSON object.  A failure raises."""
+    from orb_slam2_tpu_torch import bench
+    return bench.main(([] if args.device is None else
+                       ["--device", args.device]) +
+                      (["--small"] if args.small else []))
+
+
 def main(argv=None):
     """Parse `argv` and run the command; returns the `run` command's
-    session or the path `view` wrote."""
+    session, the path `view` wrote or `bench`'s JSON object."""
     ap = argparse.ArgumentParser(prog="tpu-slam-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     run = sub.add_parser("run", help="run SLAM on a sequence")
@@ -175,6 +187,12 @@ def main(argv=None):
     view.add_argument("--traj", help="TUM-format trajectory file")
     view.add_argument("--out", default="map.png")
     view.set_defaults(fn=cmd_view)
+    bench = sub.add_parser("bench", help="the benchmark run (one JSON line)")
+    bench.add_argument("--device", default=None,
+                       help="torch device (default: the CUDA card)")
+    bench.add_argument("--small", action="store_true",
+                       help="tests/test_e2e.py's 320x240 mono configuration")
+    bench.set_defaults(fn=cmd_bench)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -7,19 +7,33 @@ Intrinsics are packed ``K = [fx, fy, cx, cy]`` and distortion
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from orb_slam2_tpu_torch.config import CameraConfig
 
 
 def intrinsics(cfg: CameraConfig, device=None) -> torch.Tensor:
-    return torch.tensor([cfg.fx, cfg.fy, cfg.cx, cfg.cy], dtype=torch.float32,
-                        device=device)
+    """[fx, fy, cx, cy] on `device`, copied there once per camera (a copy a
+    call would stall the card's queue, and cannot be captured)."""
+    return _constant((cfg.fx, cfg.fy, cfg.cx, cfg.cy), _dev(device))
 
 
 def distortion(cfg: CameraConfig, device=None) -> torch.Tensor:
-    return torch.tensor([cfg.k1, cfg.k2, cfg.p1, cfg.p2, cfg.k3],
-                        dtype=torch.float32, device=device)
+    return _constant((cfg.k1, cfg.k2, cfg.p1, cfg.p2, cfg.k3), _dev(device))
+
+
+def _dev(device) -> torch.device:
+    d = torch.device("cpu" if device is None else device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(values: tuple, device: torch.device) -> torch.Tensor:
+    return torch.tensor(values, dtype=torch.float32, device=device)
 
 
 def project(K: torch.Tensor, p_cam: torch.Tensor) -> torch.Tensor:

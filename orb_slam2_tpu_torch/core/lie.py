@@ -43,7 +43,7 @@ def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    return torch.cat([q[..., :1], -q[..., 1:]], -1)
 
 
 def _cross(a, b):
@@ -132,7 +132,7 @@ def hat(v: torch.Tensor) -> torch.Tensor:
 
 def se3_identity(shape=(), device=None) -> torch.Tensor:
     T = torch.zeros(tuple(shape) + (7,), dtype=torch.float32, device=device)
-    T[..., 0] = 1.0
+    T[..., 0].fill_(1.0)
     return T
 
 
@@ -176,7 +176,7 @@ def se3_matrix(T: torch.Tensor) -> torch.Tensor:
     t = se3_t(T)[..., :, None]
     top = torch.cat([R, t], dim=-1)
     bottom = torch.zeros_like(top[..., :1, :])
-    bottom[..., 0, 3] = 1.0
+    bottom[..., 0, 3].fill_(1.0)
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -104,7 +104,14 @@ __device__ __forceinline__ float arc9(const float d[16]) {
 __global__ void __launch_bounds__(NT)
 fast_nms_atlas_kernel(const float* __restrict__ atlas, float* __restrict__ nms,
                       float* __restrict__ raw, const Levels lv, int L, int Hp,
-                      int Wp) {
+                      int Wp, int* __restrict__ count) {
+  // launches and planes covered, counted on the device (also under graph
+  // replay); one thread of the launch adds
+  if (count != nullptr && blockIdx.x == 0 && blockIdx.y == 0 &&
+      blockIdx.z == 0 && threadIdx.x == 0 && threadIdx.y == 0) {
+    atomicAdd(count, 1);
+    atomicAdd(count + 1, (int)gridDim.z);
+  }
   __shared__ float s_img[SH][SW];
   __shared__ float s_raw[RH][RW];
   const int g = blockIdx.z;
@@ -183,10 +190,13 @@ fast_nms_atlas_kernel(const float* __restrict__ atlas, float* __restrict__ nms,
 extern "C" int fast_nms_max_levels() { return MAX_LEVELS; }
 
 // C interface for ctypes: `hw` holds the L level heights then the L level
-// widths (host memory); launches on `stream`, returns cudaGetLastError().
+// widths (host memory, read here: the launch takes them by value); `count`
+// (device memory, or null) gains 1 launch and G planes; launches on
+// `stream`, returns cudaGetLastError().
 extern "C" int fast_nms_atlas_launch(const float* atlas, float* nms,
                                      float* raw, const int* hw, int L, int G,
-                                     int Hp, int Wp, void* stream) {
+                                     int Hp, int Wp, int* count,
+                                     void* stream) {
   if (L < 1 || L > MAX_LEVELS) return (int)cudaErrorInvalidValue;
   Levels lv = {};
   for (int i = 0; i < L; ++i) {
@@ -195,6 +205,6 @@ extern "C" int fast_nms_atlas_launch(const float* atlas, float* nms,
   }
   const dim3 grid((Wp + TILE_W - 1) / TILE_W, (Hp + TILE_H - 1) / TILE_H, G);
   fast_nms_atlas_kernel<<<grid, dim3(32, NT / 32), 0, (cudaStream_t)stream>>>(
-      atlas, nms, raw, lv, L, Hp, Wp);
+      atlas, nms, raw, lv, L, Hp, Wp, count);
   return (int)cudaGetLastError();
 }

@@ -429,8 +429,12 @@ pose_lm_kernel(const float* __restrict__ T0, const float* __restrict__ pw,
                float delta2_stereo, float lam_init, float lam_factor,
                int rounds, int iters, int N, float* __restrict__ T_out,
                uint8_t* __restrict__ inlier, int* __restrict__ n_inlier,
-               float* __restrict__ chi2_out, int* __restrict__ n_iter) {
+               float* __restrict__ chi2_out, int* __restrict__ n_iter,
+               int* __restrict__ count) {
   KERNEL_START;
+  // launches, counted on the device (also under graph replay)
+  if (count != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    atomicAdd(count, 1);
   __shared__ float part[2][CLUSTER][WARPS][32];
   __shared__ __align__(8) uint64_t bar[2];
   // every block of the cluster must be running, its mbarriers initialized,
@@ -574,7 +578,8 @@ static cudaError_t launch(const float* T0, const float* pw, const float* uv,
                           float delta2_stereo, float lam_init,
                           float lam_factor, int rounds, int iters, int B,
                           int N, float* T_out, uint8_t* inlier, int* n_inlier,
-                          float* chi2_out, int* n_iter, cudaStream_t stream) {
+                          float* chi2_out, int* n_iter, int* count,
+                          cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * CLUSTER);
   cfg.blockDim = dim3(THREADS);
@@ -591,7 +596,7 @@ static cudaError_t launch(const float* T0, const float* pw, const float* uv,
                             valid, stereo, K, bf, chi2_mono, chi2_stereo,
                             delta2_mono, delta2_stereo, lam_init, lam_factor,
                             rounds, iters, N, T_out, inlier, n_inlier,
-                            chi2_out, n_iter);
+                            chi2_out, n_iter, count);
 }
 
 // The largest N one launch takes, and the cluster size it was built with.
@@ -599,21 +604,22 @@ extern "C" int pose_lm_max_points() { return MAX_PPT * THREADS * CLUSTER; }
 extern "C" int pose_lm_cluster() { return CLUSTER; }
 
 // C interface for ctypes: launches one cluster of CLUSTER blocks per
-// problem on `stream`, returns the launch's error (cudaErrorInvalidValue
-// for N above pose_lm_max_points()).
+// problem on `stream`, adds 1 to `count` (device memory, or null), returns
+// the launch's error (cudaErrorInvalidValue for N above
+// pose_lm_max_points()).
 extern "C" int pose_lm_launch(
     const float* T0, const float* pw, const float* uv, const float* ur,
     const float* isig, const uint8_t* valid, const uint8_t* stereo,
     const float* K, float bf, float chi2_mono, float chi2_stereo,
     float delta2_mono, float delta2_stereo, float lam_init, float lam_factor,
     int rounds, int iters, int B, int N, float* T_out, uint8_t* inlier,
-    int* n_inlier, float* chi2_out, int* n_iter, void* stream) {
+    int* n_inlier, float* chi2_out, int* n_iter, int* count, void* stream) {
   const int ppt = ((N + CLUSTER - 1) / CLUSTER + THREADS - 1) / THREADS;
   cudaError_t err;
 #define POSE_LM_ARGS                                                         \
   T0, pw, uv, ur, isig, valid, stereo, K, bf, chi2_mono, chi2_stereo,        \
       delta2_mono, delta2_stereo, lam_init, lam_factor, rounds, iters, B, N, \
-      T_out, inlier, n_inlier, chi2_out, n_iter, (cudaStream_t)stream
+      T_out, inlier, n_inlier, chi2_out, n_iter, count, (cudaStream_t)stream
   if (ppt <= 1)
     err = launch<1>(POSE_LM_ARGS);
   else if (ppt <= 2)

@@ -13,9 +13,9 @@ preset (`kitti_config`: 1241x376, bf 386.1, 2000 features, 2048 keyframes,
 trajectory, and reports:
 
 * over one window of `--window` frames, host wall time per phase of the
-  per-frame step (`frame`: the whole frame construction, of which `orb` is
-  the ORB extraction and, for stereo, `stereo_sad` the SAD refinement;
-  tracking; keyframe insertion, of which `depth_points` is
+  eager per-frame step (`frame`: the whole frame construction, of which
+  `orb` is the ORB extraction and, for stereo, `stereo_sad` the SAD
+  refinement; tracking; keyframe insertion, of which `depth_points` is
   `create_depth_points` for stereo/RGB-D; each keyframe-integration
   stage), each phase timed between two `torch.cuda.synchronize()` calls,
   so a phase's number includes its device work;
@@ -27,13 +27,23 @@ trajectory, and reports:
   integration stages may fall there.
 
 The phases are timed by wrapping the step's building blocks, so the
-session runs its own code unchanged.  Prints one JSON object as its last
-line and writes it to `--out` when given.  Needs a CUDA card.
+session runs its own code unchanged; the phase timers need the eager step
+(`SLAM(..., capture=False)`: a timer's synchronisation cannot be
+captured).  Before them, graph mode (`"graph"` in the output) runs the
+session as users do, its per-frame program captured as a CUDA graph and
+replayed: the same two windows give the wall ms a frame (host clock, one
+synchronisation at each end), the frame ms quantiles, the host ms a frame
+of the dispatch, of the replay call within it and of the HUD reactions,
+the device ms a frame, the kernels the device ran a frame and the graph
+launches a frame, and the idle share of the replayed program.  Prints one
+JSON object as its last line and writes it to `--out` when given.  Needs
+a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -89,11 +99,101 @@ def _instrument(clock):
     system.mapping_stage = _timed(stage_of, system.mapping_stage, clock)
 
 
-def _device_time_us(evt) -> float:
+def device_time_us(evt) -> float:
+    """The device time of a torch.profiler event, in us."""
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, attr):
             return float(getattr(evt, attr))
     return 0.0
+
+
+def wall_window(track, frames, guard=contextlib.nullcontext) -> float:
+    """Wall ms a frame of `track(f)` over `frames` (host clock, one
+    synchronisation at each end); `guard()` is entered around the frames,
+    not the synchronisations."""
+    frames = list(frames)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with guard():
+        for f in frames:
+            track(f)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / len(frames)
+
+
+def profile_window(track, frames, guard=contextlib.nullcontext):
+    """Device ms and kernels, summed over `frames` under torch.profiler,
+    the kernels' events and the wall s; `guard()` as in `wall_window`."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        with guard():
+            for f in frames:
+                track(f)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(device_time_us(e) for e in kernels) / 1e3,
+            sum(e.count for e in kernels), kernels,
+            time.perf_counter() - t0)
+
+
+def _host_timed(fn, acc, name):
+    """`fn`, its host time (no synchronisation) added to acc[name]."""
+    def wrapped(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        acc[name] += time.perf_counter() - t0
+        return out
+    return wrapped
+
+
+def _feeder(slam, sensor, seq, second):
+    return {config.MONOCULAR: lambda f: slam.track_mono(
+                seq.images[f], seq.timestamps[f]),
+            config.STEREO: lambda f: slam.track_stereo(
+                seq.images[f], second[f], seq.timestamps[f]),
+            config.RGBD: lambda f: slam.track_rgbd(
+                seq.images[f], second[f], seq.timestamps[f])}[sensor]
+
+
+def graph_mode(cfg, sensor, seq, second, warm: int, n: int) -> dict:
+    """The session's captured program over the same windows: wall ms a
+    frame, device ms a frame, idle share, kernels and graph launches a
+    frame."""
+    slam = system.SLAM(cfg, device="cuda")
+    track = _feeder(slam, sensor, seq, second)
+    for f in range(warm):
+        track(f)
+    # host time of the dispatch (staging copies, the replay, the HUD
+    # copy), of the replay call alone and of the HUD reactions (reading
+    # the HUD `hud_lag` frames late, waiting for it when the card is
+    # behind)
+    host = defaultdict(float)
+    for name in ("_dispatch_batch", "_run_program", "_drain"):
+        setattr(slam, name, _host_timed(getattr(slam, name), host, name))
+    r0 = slam.graph_replays
+    wall_ms = wall_window(track, range(warm, warm + n))
+    host_ms = {k: v * 1e3 / n for k, v in host.items()}
+    times = [t * 1e3 for t in slam.timings[warm:warm + n]]
+    replays = slam.graph_replays - r0
+    dev_ms, n_kernels, _, _ = profile_window(track,
+                                             range(warm + n, warm + 2 * n))
+    qs = statistics.quantiles(times, n=10)
+    out = {"captured": slam.capture,
+           "wall_ms_per_frame": wall_ms,
+           "frame_ms_p50": statistics.median(times), "frame_ms_p90": qs[8],
+           "frame_ms_max": max(times),
+           "device_ms_per_frame": dev_ms / n,
+           "device_idle_share": 1.0 - dev_ms / n / wall_ms,
+           "kernel_launches_per_frame": n_kernels / n,
+           "graph_launches_per_frame": replays / n,
+           "host_ms_per_frame": {"dispatch": host_ms["_dispatch_batch"],
+                                 "replay": host_ms["_run_program"],
+                                 "hud_and_reactions": host_ms["_drain"]}}
+    del slam
+    return out
 
 
 def main(argv=None) -> dict:
@@ -128,20 +228,16 @@ def main(argv=None) -> dict:
                 seq.poses_twc, cfg.camera.baseline)).images
     else:
         second = seq.depths
-    clock = defaultdict(list)
-    _instrument(clock)
-    slam = system.SLAM(cfg, device="cuda")
-    track = {config.MONOCULAR: lambda f: slam.track_mono(
-                 seq.images[f], seq.timestamps[f]),
-             config.STEREO: lambda f: slam.track_stereo(
-                 seq.images[f], second[f], seq.timestamps[f]),
-             config.RGBD: lambda f: slam.track_rgbd(
-                 seq.images[f], second[f], seq.timestamps[f])}[sensor]
     n = args.window
     warm = args.frames - 2 * n
     if warm < 10:
         raise SystemExit("--frames must leave 10 warm-up frames before the "
                          "two windows")
+    graph = graph_mode(cfg, sensor, seq, second, warm, n)
+    clock = defaultdict(list)
+    _instrument(clock)
+    slam = system.SLAM(cfg, device="cuda", capture=False)
+    track = _feeder(slam, sensor, seq, second)
     for f in range(warm):
         track(f)
 
@@ -151,29 +247,14 @@ def main(argv=None) -> dict:
     # makes its keyframes (and their integration stages) early
     warm_calls = {k: [t * 1e3 for t in v] for k, v in clock.items()}
     clock.clear()
-    t0 = time.perf_counter()
-    for f in range(warm, warm + n):
-        track(f)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
+    wall_ms = wall_window(track, range(warm, warm + n))
     phases = {k: list(v) for k, v in clock.items()}
 
     # window 2: the profiler (its own overhead inflates the wall time)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    t0 = time.perf_counter()
-    with torch.profiler.profile(activities=acts) as prof:
-        for f in range(warm + n, warm + 2 * n):
-            track(f)
-        torch.cuda.synchronize()
-    prof_wall_s = time.perf_counter() - t0
-
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(_device_time_us(e) for e in kernels)
-    launches = sum(e.count for e in kernels)
-    top = sorted(kernels, key=_device_time_us, reverse=True)[:12]
-    dev_ms = dev_us / 1e3 / n
+    dev_ms, launches, kernels, prof_wall_s = profile_window(
+        track, range(warm + n, warm + 2 * n))
+    top = sorted(kernels, key=device_time_us, reverse=True)[:12]
+    dev_ms = dev_ms / n
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -186,7 +267,7 @@ def main(argv=None) -> dict:
         "preset": args.preset,
         "frames_per_window": n,
         # window 1: phase timers (two synchronisations per phase)
-        "wall_ms_per_frame": wall_s * 1e3 / n,
+        "wall_ms_per_frame": wall_ms,
         "phase_ms_per_frame": {k: sum(v) * 1e3 / n for k, v in phases.items()},
         "phase_calls": {k: len(v) for k, v in phases.items()},
         "phase_ms_median_per_call": {k: statistics.median(v) * 1e3
@@ -200,10 +281,12 @@ def main(argv=None) -> dict:
         "kernel_launches_per_frame": launches / n,
         # device time over window 1's wall time (the profiler's own host
         # overhead would otherwise count as idle)
-        "device_idle_share": 1.0 - dev_ms / (wall_s * 1e3 / n),
+        "device_idle_share": 1.0 - dev_ms / wall_ms,
         "top_kernels": [{"name": e.key[:80], "count": e.count,
-                         "device_ms_per_frame": _device_time_us(e) / 1e3 / n}
+                         "device_ms_per_frame": device_time_us(e) / 1e3 / n}
                         for e in top],
+        # the session's own path: the captured program, replayed
+        "graph": graph,
     }
     line = json.dumps(out)
     if args.out:

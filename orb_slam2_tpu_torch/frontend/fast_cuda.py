@@ -17,8 +17,10 @@ per-level extractor calls once per level: an [H, W] f32 level in, [H, W]
 maps out; on a CUDA tensor one launch of the same kernel over a one-plane
 atlas, on a CPU tensor `fast_nms_raw_plain`.
 
-`launches` counts the kernel's launches, so a run can show that its main
-path went through the kernel, and `planes` the atlas planes they covered.
+`device_counts()` reads the launches and the planes they covered as the
+kernel itself counts them on the device (one thread of each launch adds),
+so a replayed CUDA graph counts too; `reset_device_counts()` zeroes them.
+A call on a CPU tensor counts nothing.
 """
 
 from __future__ import annotations
@@ -29,13 +31,36 @@ from typing import Sequence, Tuple
 import torch
 
 from orb_slam2_tpu_torch import cuda_build
+from orb_slam2_tpu_torch.core import control
 from orb_slam2_tpu_torch.frontend import fast
 
 SOURCE = cuda_build.source("fast_nms.cu")
 
-launches = 0
-planes = 0
 _lib = None
+_counts = {}        # device -> int32 [2]: launches, planes
+
+
+def _count_buffer(dev: torch.device) -> torch.Tensor:
+    t = _counts.get(dev)
+    if t is None:
+        t = _counts[dev] = control.register(
+            torch.zeros(2, dtype=torch.int32, device=dev))
+    return t
+
+
+def device_counts():
+    """(launches, planes) counted by the kernel on every device."""
+    tot = [0, 0]
+    for t in _counts.values():
+        a, b = t.tolist()
+        tot[0] += a
+        tot[1] += b
+    return tuple(tot)
+
+
+def reset_device_counts():
+    for t in _counts.values():
+        t.zero_()
 
 
 def fast_nms_raw_plain(img: torch.Tensor):
@@ -82,7 +107,7 @@ def _load():
         lib = ctypes.CDLL(build())
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fast_nms_atlas_launch.argtypes = [p, p, p, ctypes.POINTER(i), i,
-                                              i, i, i, p]
+                                              i, i, i, p, p]
         lib.fast_nms_atlas_launch.restype = ctypes.c_int
         lib.fast_nms_max_levels.argtypes = []
         lib.fast_nms_max_levels.restype = ctypes.c_int
@@ -94,7 +119,6 @@ def _load():
 def fast_nms_atlas_cuda(atlas: torch.Tensor,
                         shapes: Sequence[Tuple[int, int]]):
     """One kernel launch over a CUDA [G, Hp, Wp] f32 atlas; (nms, raw)."""
-    global launches, planes
     if not atlas.is_cuda:
         raise ValueError(f"expected a CUDA atlas, got one on {atlas.device}")
     _check(atlas, shapes)
@@ -107,13 +131,12 @@ def fast_nms_atlas_cuda(atlas: torch.Tensor,
                                   *[w for _, w in shapes])
     atlas = atlas if atlas.is_contiguous() else atlas.contiguous()
     nms, raw = torch.empty_like(atlas), torch.empty_like(atlas)
+    count = _count_buffer(atlas.device)
     err = cuda_build.launch(atlas.device, lib.fast_nms_atlas_launch,
                             atlas.data_ptr(), nms.data_ptr(), raw.data_ptr(),
-                            hw, L, G, Hp, Wp)
+                            hw, L, G, Hp, Wp, count.data_ptr())
     if err != 0:
         raise RuntimeError(f"fast_nms kernel launch failed: cudaError {err}")
-    launches += 1
-    planes += G
     return nms, raw
 
 

@@ -113,7 +113,7 @@ def bits_to_pm1(bits: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     """[K, 256] bool -> [K, 32] uint8 (little-endian bit order per byte)."""
     b = bits.reshape(bits.shape[0], 32, 8).to(torch.uint8)
-    w = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=bits.device)
+    w = _table("_BIT_WEIGHTS", torch.uint8, bits.device)
     return torch.sum(b * w, dim=-1).to(torch.uint8)
 
 

@@ -15,9 +15,17 @@ import torch
 from orb_slam2_tpu_torch.core import lie
 from orb_slam2_tpu_torch.frontend.orb import unpack_bits
 from orb_slam2_tpu_torch.map.state import (MapState, first_flagged,
-                                           last_writer,
+                                           last_writer, put_row, row,
                                            spanning_parent_for_kf,
                                            update_covisibility_for_kf)
+
+
+def _as_i32(v, device) -> torch.Tensor:
+    """An int or an integer tensor as an int32 tensor on `device`, without a
+    host-to-device copy."""
+    if isinstance(v, torch.Tensor):
+        return v.to(torch.int32)
+    return torch.full((), v, dtype=torch.int32, device=device)
 
 
 def _void(t: torch.Tensor, fill) -> torch.Tensor:
@@ -50,12 +58,13 @@ def alloc_points(state: MapState, want: torch.Tensor, pos: torch.Tensor,
     rep_p = _void(state.mp_replaced, 0)
     pos_p[slot] = pos
     desc_p[slot] = desc
-    valid_p[slot] = True
-    first_p[slot] = torch.as_tensor(first_kf, dtype=torch.int32,
-                                    device=pos.device)
-    vis_p[slot] = 1
-    fnd_p[slot] = 1
-    rep_p[slot] = -1
+    # (index_fill_ takes the value as a scalar: setting a Python scalar by
+    # index would copy it from the host, which a CUDA graph cannot capture)
+    valid_p.index_fill_(0, slot, True)
+    first_p[slot] = _as_i32(first_kf, pos.device)
+    vis_p.index_fill_(0, slot, 1)
+    fnd_p.index_fill_(0, slot, 1)
+    rep_p.index_fill_(0, slot, -1)
     n_new = torch.sum(ok, dtype=torch.int32)
     state = state._replace(
         mp_pos=pos_p[:M], mp_desc=desc_p[:M], mp_valid=valid_p[:M],
@@ -92,13 +101,11 @@ def add_obs(state: MapState, kf_id, kp_idx: torch.Tensor,
     N = state.kf_obs.shape[1]
     ok = pids >= 0
     kp = kp_idx.long().clamp(min=0)
-    kf_obs = state.kf_obs.clone()
-    row = _void(kf_obs[kf_id], -1)
+    r = _void(row(state.kf_obs, kf_id), -1)
     win = last_writer(kp, torch.ones_like(ok), N)   # every row writes
-    row[torch.where(win, kp, N)] = torch.where(ok, pids.to(torch.int32),
-                                               row[kp])
-    kf_obs[kf_id] = row[:N]
-    kf_t = torch.as_tensor(kf_id, dtype=torch.int32, device=pids.device)
+    r[torch.where(win, kp, N)] = torch.where(ok, pids.to(torch.int32), r[kp])
+    kf_obs = put_row(state.kf_obs, kf_id, r[:N])
+    kf_t = _as_i32(kf_id, pids.device)
     obs_kf, obs_kp = _mirror_add(state, kf_t, kp_idx, pids, ok)
     return state._replace(kf_obs=kf_obs, mp_obs_kf=obs_kf, mp_obs_kp=obs_kp)
 
@@ -133,8 +140,7 @@ def remove_obs_global(state: MapState, removal: torch.Tensor) -> MapState:
 
 def remove_obs(state: MapState, kf_id, kp_mask: torch.Tensor) -> MapState:
     """Remove the observations of keyframe kf_id at keypoints where kp_mask."""
-    removal = torch.zeros_like(state.kf_kp_valid)
-    removal[kf_id] = kp_mask
+    removal = put_row(torch.zeros_like(state.kf_kp_valid), kf_id, kp_mask)
     return remove_obs_global(state, removal)
 
 
@@ -257,14 +263,10 @@ def insert_keyframe(state: MapState, frame, pose: torch.Tensor,
                     obs_pids: torch.Tensor):
     """Append a keyframe built from a tracked frame (reference
     Tracking::CreateNewKeyFrame + KeyFrame ctor + UpdateConnections).
-    Returns (state, kf_id) with kf_id a Python int."""
-    k = int(state.next_kf)
-
-    def put(t, v):
-        t = t.clone()
-        t[k] = v
-        return t
-
+    Returns (state, kf_id) with kf_id a 0-d int64 tensor: the slot is
+    chosen on the device (`next_kf`), so nothing is read on the host."""
+    k = state.next_kf.long()
+    put = lambda t, v: put_row(t, k, v)
     state = state._replace(
         kf_pose=put(state.kf_pose, pose),
         kf_valid=put(state.kf_valid, True),

@@ -123,15 +123,42 @@ def mask_from_ids(ids: torch.Tensor, ok: torch.Tensor, n: int) -> torch.Tensor:
     """[n] bool: True at ids[ok] (the `zeros.at[where(ok, ids, n)].set(True)`
     idiom).  All writes carry the same value, so duplicates are harmless."""
     m = torch.zeros(n + 1, dtype=torch.bool, device=ids.device)
-    m[torch.where(ok, ids.long(), n)] = True
+    m.index_fill_(0, torch.where(ok, ids.long(), n).reshape(-1), True)
     return m[:n]
 
 
 def count_ids(ids: torch.Tensor, ok: torch.Tensor, n: int) -> torch.Tensor:
-    """[n] int32 occurrence counts of ids[ok] (an integer scatter-add, which
-    sums to the same result in any order)."""
-    return torch.bincount(torch.where(ok, ids.long(), n).reshape(-1),
-                          minlength=n + 1)[:n].to(torch.int32)
+    """[n] int32 occurrence counts of ids[ok]: an integer scatter-add into a
+    count of fixed length (exact in any order; `bincount` would read its
+    length from the device)."""
+    tgt = torch.where(ok, ids.long(), n).reshape(-1)
+    return torch.zeros(n + 1, dtype=torch.int32, device=ids.device
+                       ).scatter_add_(0, tgt, torch.ones_like(
+                           tgt, dtype=torch.int32))[:n]
+
+
+def row(t: torch.Tensor, k) -> torch.Tensor:
+    """t[k] for an int or a one-element integer tensor k.  Indexing with a
+    0-d tensor reads it on the host; a one-element index does not."""
+    if isinstance(k, torch.Tensor):
+        return t[k.reshape(1).long()][0]
+    return t[k]
+
+
+def put_row(t: torch.Tensor, k, v, dim: int = 0) -> torch.Tensor:
+    """A copy of t with its row k along `dim` set to v (a tensor or a
+    Python scalar, broadcast to the row), for an int or a one-element
+    integer tensor k, without a host read."""
+    shape = t.shape[:dim] + (1,) + t.shape[dim + 1:]
+    if isinstance(v, torch.Tensor):
+        v = v.to(t.dtype).unsqueeze(dim).expand(shape)
+    else:
+        v = torch.full(shape, v, dtype=t.dtype, device=t.device)
+    if isinstance(k, torch.Tensor):
+        idx = k.reshape(1).long()
+    else:
+        idx = torch.full((1,), k, dtype=torch.int64, device=t.device)
+    return t.index_copy(dim, idx, v)
 
 
 def last_writer(idx: torch.Tensor, ok: torch.Tensor, n: int) -> torch.Tensor:
@@ -201,22 +228,20 @@ def update_covisibility_for_kf(state: MapState, k) -> MapState:
     of shared map points (reference KeyFrame::UpdateConnections)."""
     M = state.mp_pos.shape[0]
     obs = state.kf_obs
-    obs_k = obs[k]
+    obs_k = row(obs, k)
     mark = mask_from_ids(obs_k, obs_k >= 0, M + 1)
-    mark[M] = False
+    mark[M:].fill_(False)   # a scalar fill: no host-to-device copy
     shared = torch.sum(mark[torch.where(obs >= 0, obs.long(), M)], dim=1
                        ).to(torch.int32)
-    shared = torch.where(state.kf_valid, shared, 0)
-    shared[k] = 0
-    covis = state.covis.clone()
-    covis[k, :] = shared
-    covis[:, k] = shared
+    ids = torch.arange(shared.shape[0], device=shared.device)
+    shared = torch.where(state.kf_valid & (ids != k), shared, 0)
+    covis = put_row(put_row(state.covis, k, shared), k, shared, dim=1)
     return state._replace(covis=covis)
 
 
 def spanning_parent_for_kf(state: MapState, k) -> torch.Tensor:
     """First-connection spanning-tree parent: the top covisible earlier KF."""
-    w = state.covis[k]
+    w = row(state.covis, k)
     earlier = (torch.arange(w.shape[0], device=w.device) < k) & state.kf_valid
     w = torch.where(earlier, w, -1)
     parent = torch.argmax(w)
@@ -227,7 +252,7 @@ def covisible_neighbors(state: MapState, k, n: int,
                         min_weight: int = 1) -> torch.Tensor:
     """Top-n covisible KF ids of k by weight (-1 padded), ties towards the
     lower id (reference GetBestCovisibilityKeyFrames)."""
-    w = torch.where(state.kf_valid, state.covis[k], 0)
+    w = torch.where(state.kf_valid, row(state.covis, k), 0)
     top_w, idx = stable_topk(w, n)
     return torch.where(top_w >= min_weight, idx, -1)
 

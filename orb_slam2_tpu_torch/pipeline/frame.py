@@ -203,7 +203,7 @@ def build_stereo_frame_fn(cfg: SLAMConfig, device=None):
         n = fl.uv.shape[0]
         n_m = torch.clamp(torch.sum(matched.to(torch.int32)), min=1)
         sad_sorted = torch.sort(torch.where(matched, sad, float("inf")))[0]
-        med = sad_sorted[torch.clamp((n_m - 1) // 2, 0, n - 1)]
+        med = sad_sorted[torch.clamp((n_m - 1) // 2, 0, n - 1).reshape(1)][0]
         keep = matched & (sad <= 1.5 * 1.4 * med)
         disp_m = torch.clamp(fl.uv[:, 0] - ur, 0.01, max_d)
         depth = torch.where(keep, bf / disp_m, -1.0)

@@ -96,13 +96,13 @@ def create_mono_map(state: MapState, ts: TrackState, frame: Frame,
         last_pids=cur_pids, last_uv=frame.uv, last_octave=frame.octave,
         last_angle=frame.angle, last_valid=frame.valid,
         last_desc=frame.desc, last_depth=frame.depth,
-        ref_kf=i32(k1), last_kf_frame_id=frame.frame_id,
+        ref_kf=k1.to(torch.int32), last_kf_frame_id=frame.frame_id,
         init_valid_frame=torch.tensor(False, device=dev))
     # log the first init frame's pose (identity at KF0) so exports start at
     # the true sequence start
     i0 = int(ts.init_frame_id.clamp(0, ts.traj.shape[0] - 1))
     row0 = torch.cat([ident, ident, torch.stack([
-        torch.tensor(float(k0), device=dev), torch.tensor(1.0, device=dev),
+        k0.to(torch.float32), torch.ones((), device=dev),
         ts.init_timestamp.to(torch.float32)])])
     traj = ts.traj.clone()
     traj[i0] = row0
@@ -135,5 +135,5 @@ def stereo_initialize(state: MapState, ts: TrackState, frame: Frame,
         last_pids=pids, last_uv=frame.uv, last_octave=frame.octave,
         last_angle=frame.angle, last_valid=frame.valid,
         last_desc=frame.desc, last_depth=frame.depth,
-        ref_kf=i32(k0), last_kf_frame_id=frame.frame_id)
+        ref_kf=k0.to(torch.int32), last_kf_frame_id=frame.frame_id)
     return state, ts, frame.n >= cfg.tracking.stereo_init_min_kps

@@ -58,8 +58,9 @@ def detect(state: MapState, kf_id, cfg: SLAMConfig, n_cand: int = 8):
     cs = res.ids.long().clamp(min=0)
     # candidate group = candidate + its connected KFs (weight >= 15,
     # GetConnectedKeyFrames)
-    groups = (state.covis[cs] >= 15) | torch.nn.functional.one_hot(
-        cs, state.covis.shape[0]).to(torch.bool)
+    K = state.covis.shape[0]
+    groups = (state.covis[cs] >= 15) | \
+        (cs[:, None] == torch.arange(K, device=cs.device))
     return res.ids, groups & (res.ids >= 0)[:, None]
 
 

@@ -4,8 +4,10 @@ orb_slam2_tpu/pipeline/mapping.py; reference LocalMapping.cc run
 deterministically after a keyframe insertion).
 
 Where the JAX code `vmap`s over neighbour keyframes, this port loops over
-them on the host; neighbour slots that are -1 (fewer covisible keyframes
-than asked for) produce no candidates in the JAX version and are skipped.
+every neighbour slot (a fixed count, known when the step is built); a slot
+that is -1 (fewer covisible keyframes than asked for) reads keyframe 0 and
+its results are masked off, as in the JAX version.  Keyframe ids may be
+device tensors: nothing here reads the device from the host.
 """
 
 from __future__ import annotations
@@ -13,12 +15,12 @@ from __future__ import annotations
 import torch
 
 from orb_slam2_tpu_torch.config import SLAMConfig
-from orb_slam2_tpu_torch.core import camera, lie
+from orb_slam2_tpu_torch.core import camera, control, lie
 from orb_slam2_tpu_torch.map import ops
 from orb_slam2_tpu_torch.map.state import (MapState, covisible_neighbors,
                                            first_flagged, last_writer,
                                            mask_from_ids, point_obs_count,
-                                           stable_topk,
+                                           put_row, row, stable_topk,
                                            update_covisibility_for_kf,
                                            weighted_obs_count)
 from orb_slam2_tpu_torch.matching import hamming, search
@@ -27,9 +29,10 @@ from orb_slam2_tpu_torch.pipeline.tracking import predict_scale
 from orb_slam2_tpu_torch.solvers import triangulate as tri
 
 # Points `create_depth_points` made, and those of them under the close
-# threshold, summed on the device beside the call; set to 0 to restart.
-depth_points = 0
-close_depth_points = 0
+# threshold, summed on the device in place beside the call (counted under
+# graph replay too); `int(c)` reads one, `c.reset()` restarts it.
+depth_points = control.Count()
+close_depth_points = control.Count()
 
 
 def _camera_center(T):
@@ -51,21 +54,16 @@ def _fundamental(T1, T2, K):
 
 def median_scene_depth(state: MapState, k, K) -> torch.Tensor:
     """Median depth of the points keyframe k observes."""
-    obs = state.kf_obs[k]
+    obs = row(state.kf_obs, k)
     has = obs >= 0
     pw = state.mp_pos[obs.long().clamp(min=0)]
-    z = lie.se3_apply(state.kf_pose[k], pw)[:, 2]
+    z = lie.se3_apply(row(state.kf_pose, k), pw)[:, 2]
     n = torch.clamp(torch.sum(has.to(torch.int32)), min=1)
     z_sorted = torch.sort(torch.where(has, z, float("inf")))[0]
-    return z_sorted[torch.clamp((n - 1) // 2, 0, z.shape[0] - 1)]
+    return row(z_sorted, torch.clamp((n - 1) // 2, 0, z.shape[0] - 1))
 
 
-def _valid_ids(ids: torch.Tensor):
-    """Host list of the non-negative entries of a small id tensor."""
-    return [int(v) for v in ids.tolist() if v >= 0]
-
-
-def triangulate_new_points(state: MapState, kf_id: int, cfg: SLAMConfig,
+def triangulate_new_points(state: MapState, kf_id, cfg: SLAMConfig,
                            n_neighbors: int | None = None) -> MapState:
     """Create map points by triangulating the new keyframe's unmatched
     keypoints against its best covisible neighbours (reference
@@ -80,27 +78,29 @@ def triangulate_new_points(state: MapState, kf_id: int, cfg: SLAMConfig,
         n_neighbors = (cfg.mapping.triangulate_neighbors if cfg.sensor == 0
                        else cfg.mapping.triangulate_neighbors_stereo)
     neighbors = covisible_neighbors(state, kf_id, n_neighbors, min_weight=15)
-    T1 = state.kf_pose[kf_id]
+    T1 = row(state.kf_pose, kf_id)
     c1 = _camera_center(T1)
     med_depth = median_scene_depth(state, kf_id, K)
-    kp1_free = state.kf_kp_valid[kf_id] & (state.kf_obs[kf_id] < 0)
-    desc1 = state.kf_desc[kf_id]
-    uv1 = state.kf_uv[kf_id]
-    oct1 = state.kf_octave[kf_id]
-    ang1 = state.kf_angle[kf_id]
+    kp1_free = row(state.kf_kp_valid, kf_id) & (row(state.kf_obs, kf_id) < 0)
+    desc1 = row(state.kf_desc, kf_id)
+    uv1 = row(state.kf_uv, kf_id)
+    oct1 = row(state.kf_octave, kf_id)
+    ang1 = row(state.kf_angle, kf_id)
     sigma1 = sf ** oct1.to(torch.float32)
     ones = torch.ones((N, 1), device=dev)
     ph1 = torch.cat([uv1, ones], -1)
     xn1 = (uv1 - K[2:4]) / K[:2]
 
-    def per_neighbor(nb: int):
-        T2 = state.kf_pose[nb]
+    def per_neighbor(nb):
+        nb_ok = nb >= 0
+        nb = nb.clamp(min=0)
+        T2 = row(state.kf_pose, nb)
         c2 = _camera_center(T2)
         baseline = torch.linalg.vector_norm(c2 - c1)
         base_ok = baseline / torch.clamp(med_depth, min=1e-9) > 0.01
-        kp2_free = state.kf_kp_valid[nb] & (state.kf_obs[nb] < 0)
-        uv2 = state.kf_uv[nb]
-        oct2 = state.kf_octave[nb]
+        kp2_free = row(state.kf_kp_valid, nb) & (row(state.kf_obs, nb) < 0)
+        uv2 = row(state.kf_uv, nb)
+        oct2 = row(state.kf_octave, nb)
         F = _fundamental(T2, T1, K)
         ph2 = torch.cat([uv2, ones], -1)
         l2 = ph1 @ F.T
@@ -111,11 +111,11 @@ def triangulate_new_points(state: MapState, kf_id: int, cfg: SLAMConfig,
         e2 = camera.project(K, lie.se3_apply(T2, c1)[None])[0]
         far = torch.sum((uv2 - e2) ** 2, -1) > 100.0 * sigma2_2
         gate = gate & far[None, :]
-        dist = hamming.hamming_matrix(desc1, state.kf_desc[nb])
+        dist = hamming.hamming_matrix(desc1, row(state.kf_desc, nb))
         res = search.match_descriptors(dist, gate, cfg.match.th_low, None,
                                        kp1_free, kp2_free)
-        idx = search.rotation_consistency(ang1, state.kf_angle[nb], res.idx,
-                                          cfg.match.histo_length)
+        idx = search.rotation_consistency(ang1, row(state.kf_angle, nb),
+                                          res.idx, cfg.match.histo_length)
         m = idx >= 0
         idx_s = idx.clamp(min=0)
         xn2 = (uv2[idx_s] - K[2:4]) / K[:2]
@@ -134,31 +134,26 @@ def triangulate_new_points(state: MapState, kf_id: int, cfg: SLAMConfig,
         ratio_factor = 1.5 * sf
         scale_ok = (ratio_dist > ratio_oct / ratio_factor) & \
                    (ratio_dist < ratio_oct * ratio_factor)
-        good = (m & base_ok & torch.all(torch.isfinite(pw), -1) &
+        good = (m & nb_ok & base_ok & torch.all(torch.isfinite(pw), -1) &
                 (cosp < 0.9998) & (cosp > 0) & (z1 > 0) & (z2 > 0) &
                 (chi1 < cfg.mapping.epipolar_chi2_mono) &
                 (chi2 < cfg.mapping.epipolar_chi2_mono) & scale_ok)
         return good, pw, idx, cosp
 
-    nbs = _valid_ids(neighbors)
-    if nbs:
-        goods, pws, idxs, cosps = (torch.stack(a) for a in zip(
-            *[per_neighbor(nb) for nb in nbs]))
-        score = torch.where(goods, 1.0 - cosps, -1.0)      # [NB, N]
-        best_nb = torch.argmax(score, dim=0)
-        ar = torch.arange(N, device=dev)
-        any_good = torch.any(goods, dim=0)
-        pw_best = pws[best_nb, ar]
-        idx_best = idxs[best_nb, ar]
-        nb_best = torch.as_tensor(nbs, device=dev)[best_nb]
-    else:
-        any_good = torch.zeros(N, dtype=torch.bool, device=dev)
-        pw_best = torch.zeros((N, 3), device=dev)
-        idx_best = torch.zeros(N, dtype=torch.int64, device=dev)
-        nb_best = idx_best
+    # every slot; -1 slots trail the valid ones and add no good candidate,
+    # so the argmax over all slots picks what it picks over the valid ones
+    goods, pws, idxs, cosps = (torch.stack(a) for a in zip(
+        *[per_neighbor(neighbors[i]) for i in range(neighbors.shape[0])]))
+    score = torch.where(goods, 1.0 - cosps, -1.0)          # [NB, N]
+    best_nb = torch.argmax(score, dim=0)
+    ar = torch.arange(N, device=dev)
+    any_good = torch.any(goods, dim=0)
+    pw_best = pws[best_nb, ar]
+    idx_best = idxs[best_nb, ar]
+    nb_best = neighbors[best_nb]
 
     state, pids = ops.alloc_points(state, any_good, pw_best,
-                                   state.kf_desc[kf_id], kf_id)
+                                   row(state.kf_desc, kf_id), kf_id)
     state = ops.add_obs(state, kf_id, torch.arange(N, device=dev), pids)
     state = ops.add_obs_multi(state, torch.where(pids >= 0, nb_best, -1),
                               idx_best.clamp(min=0), pids)
@@ -168,18 +163,17 @@ def triangulate_new_points(state: MapState, kf_id: int, cfg: SLAMConfig,
     return update_covisibility_for_kf(state, kf_id)
 
 
-def create_depth_points(state: MapState, kf_id: int,
+def create_depth_points(state: MapState, kf_id,
                         cfg: SLAMConfig) -> MapState:
     """Stereo/RGB-D: map points for the new keyframe's untracked keypoints
     with depth, every close one and the nearest far ones until
     `close_depth_n` (reference Tracking::CreateNewKeyFrame,
     Tracking.cc:1078-1136)."""
-    global depth_points, close_depth_points
     dev = state.kf_pose.device
     K = camera.intrinsics(cfg.camera, dev)
     N = state.kf_obs.shape[1]
-    depth = state.kf_depth[kf_id]
-    free = state.kf_kp_valid[kf_id] & (state.kf_obs[kf_id] < 0)
+    depth = row(state.kf_depth, kf_id)
+    free = row(state.kf_kp_valid, kf_id) & (row(state.kf_obs, kf_id) < 0)
     th_depth = cfg.camera.th_depth * cfg.camera.baseline \
         if cfg.camera.bf > 0 else float("inf")
     has = free & (depth > 0)
@@ -188,22 +182,22 @@ def create_depth_points(state: MapState, kf_id: int,
     order = torch.argsort(torch.where(has, depth, float("inf")), stable=True)
     rank = torch.argsort(order, stable=True)
     want = has & ((depth < th_depth) | (rank < cfg.tracking.close_depth_n))
-    T = state.kf_pose[kf_id]
-    pc = camera.unproject(K, state.kf_uv[kf_id], depth)
+    T = row(state.kf_pose, kf_id)
+    pc = camera.unproject(K, row(state.kf_uv, kf_id), depth)
     pw = lie.se3_apply(lie.se3_inverse(T), pc)
-    state, pids = ops.alloc_points(state, want, pw, state.kf_desc[kf_id],
+    state, pids = ops.alloc_points(state, want, pw, row(state.kf_desc, kf_id),
                                    kf_id)
     state = ops.add_obs(state, kf_id, torch.arange(N, device=dev), pids)
-    made = free & (state.kf_obs[kf_id] >= 0)
-    depth_points = depth_points + made.sum()
-    close_depth_points = close_depth_points + (made & (depth < th_depth)).sum()
+    made = free & (row(state.kf_obs, kf_id) >= 0)
+    depth_points.add(made.sum())
+    close_depth_points.add((made & (depth < th_depth)).sum())
     state = ops.update_point_attributes(
         state, pids_mask_from(pids, state.mp_pos.shape[0]),
         cfg.orb.scale_factor, cfg.orb.n_levels)
     return update_covisibility_for_kf(state, kf_id)
 
 
-def cull_points(state: MapState, kf_id: int, cfg: SLAMConfig) -> MapState:
+def cull_points(state: MapState, kf_id, cfg: SLAMConfig) -> MapState:
     """Recent-point culling (reference LocalMapping::MapPointCulling): found
     ratio < 0.25, or too few observations two keyframes after creation;
     points of the two bootstrap keyframes are exempt."""
@@ -219,36 +213,30 @@ def cull_points(state: MapState, kf_id: int, cfg: SLAMConfig) -> MapState:
     return ops.cull_points(state, bad)
 
 
-def cull_keyframe(state: MapState, ts, c: int, cfg: SLAMConfig):
+def cull_keyframe(state: MapState, ts, c, cfg: SLAMConfig):
     """Invalidate keyframe c (reference KeyFrame::SetBadFlag): erase its
     observations (discarding points left with nObs <= 2), re-parent its
     children by max covisibility, store the relative pose, and retarget the
-    trajectory records that referenced it to its parent.  Returns
-    (state, ts)."""
+    trajectory records that referenced it to its parent.  `c`: an int or a
+    0-d tensor >= 0.  Returns (state, ts)."""
     K = state.kf_valid.shape[0]
     M = state.mp_pos.shape[0]
     dev = state.kf_pose.device
-    parent = state.kf_parent[c]
+    parent = row(state.kf_parent, c)
     parent = torch.where(parent >= 0, parent, 0).to(torch.int32)
-    rel_cp = lie.se3_compose(state.kf_pose[c],
-                             lie.se3_inverse(state.kf_pose[parent.long()]))
-    pids = state.kf_obs[c]
+    rel_cp = lie.se3_compose(row(state.kf_pose, c),
+                             lie.se3_inverse(row(state.kf_pose, parent)))
+    pids = row(state.kf_obs, c)
     touched = mask_from_ids(pids, pids >= 0, M)
     state = ops.remove_obs(state, c, torch.ones(state.kf_obs.shape[1],
                                                 dtype=torch.bool, device=dev))
     w_cnt = weighted_obs_count(state)
     state = ops.cull_points(state, touched & state.mp_valid & (w_cnt <= 2))
-    kf_valid = state.kf_valid.clone()
-    kf_valid[c] = False
-    covis = state.covis.clone()
-    covis[c, :] = 0
-    covis[:, c] = 0
-    kf_bow = state.kf_bow.clone()
-    kf_bow[c] = 0.0
-    kf_pose_rel = state.kf_pose_rel.clone()
-    kf_pose_rel[c] = rel_cp
-    state = state._replace(kf_valid=kf_valid, covis=covis, kf_bow=kf_bow,
-                           kf_pose_rel=kf_pose_rel)
+    state = state._replace(
+        kf_valid=put_row(state.kf_valid, c, False),
+        covis=put_row(put_row(state.covis, c, 0), c, 0, dim=1),
+        kf_bow=put_row(state.kf_bow, c, 0.0),
+        kf_pose_rel=put_row(state.kf_pose_rel, c, rel_cp))
     ids = torch.arange(K, device=dev)
     children = state.kf_parent == c
     w = torch.where(state.kf_valid[None, :] & (ids[None, :] < ids[:, None]),
@@ -265,13 +253,13 @@ def cull_keyframe(state: MapState, ts, c: int, cfg: SLAMConfig):
     return state, ts._replace(traj=traj)
 
 
-def cull_redundant_keyframes(state: MapState, ts, kf_id: int,
+def cull_redundant_keyframes(state: MapState, ts, kf_id,
                              cfg: SLAMConfig, n_candidates: int = 10):
     """Reference LocalMapping::KeyFrameCulling: a covisible keyframe is
     redundant if >90% of its points (its close points for stereo/RGB-D) are
     seen by >= 3 other keyframes at the same or finer scale; the most
-    redundant one is culled.  Returns
-    (state, ts)."""
+    redundant one is culled, under a device branch (JAX mapping.py:324).
+    Returns (state, ts)."""
     th_obs = cfg.mapping.kf_cull_th_obs
     cands = covisible_neighbors(state, kf_id, n_candidates, min_weight=15)
     csafe = cands.clamp(min=0)
@@ -300,11 +288,11 @@ def cull_redundant_keyframes(state: MapState, ts, kf_id: int,
     ratio = nred / torch.clamp(nmp, min=1).to(torch.float32)
     culls = ((cands > 0) & (cands != kf_id) & (nmp > 0) &
              (nred > cfg.mapping.kf_cull_redundancy * nmp))
-    bi = torch.argmax(torch.where(culls, ratio, -1.0))
-    c = int(torch.where(culls[bi], cands[bi], -1))
-    if c >= 0:
-        state, ts = cull_keyframe(state, ts, c, cfg)
-    return state, ts
+    bi = torch.argmax(torch.where(culls, ratio, -1.0)).reshape(1)
+    c = torch.where(culls[bi], cands[bi], -1)[0]
+    return control.cond(
+        c >= 0, lambda st, t: cull_keyframe(st, t, c.clamp(min=0), cfg),
+        control.identity, (state, ts))
 
 
 def _apply_fuse_onepass(state: MapState, tgt_kf, tgt_ok, kp_a, m_a,
@@ -397,7 +385,7 @@ def _apply_fuse_onepass(state: MapState, tgt_kf, tgt_ok, kp_a, m_a,
     return ops.replace_points(state, src_arr, dst_arr)
 
 
-def fuse_neighbors(state: MapState, kf_id: int, cfg: SLAMConfig,
+def fuse_neighbors(state: MapState, kf_id, cfg: SLAMConfig,
                    n_neighbors: int | None = None) -> MapState:
     """Two-way map-point fusion with covisible neighbours (reference
     LocalMapping::SearchInNeighbors + ORBmatcher::Fuse).  Direction A
@@ -423,8 +411,8 @@ def fuse_neighbors(state: MapState, kf_id: int, cfg: SLAMConfig,
         w2 = torch.amax(torch.where(nb_ok[:, None],
                                     state.covis[neighbors.clamp(min=0)], 0),
                         dim=0)
-        first = mask_from_ids(neighbors, nb_ok, K_)
-        first[kf_id] = True
+        first = mask_from_ids(neighbors, nb_ok, K_) | \
+            (torch.arange(K_, device=dev) == kf_id)
         w2 = torch.where(state.kf_valid & ~first, w2, 0)
         top2_w, top2_i = stable_topk(w2, n2)
         neighbors = torch.cat([neighbors, torch.where(top2_w >= 15, top2_i,
@@ -434,7 +422,7 @@ def fuse_neighbors(state: MapState, kf_id: int, cfg: SLAMConfig,
     def match_points_into(state, pw, desc, min_d, max_d, normal, pt_ok, dst):
         """Project a point set into keyframe `dst` with the Fuse gates;
         returns (kp index per point or -1, matched mask)."""
-        T = state.kf_pose[dst]
+        T = row(state.kf_pose, dst)
         pc = lie.se3_apply(T, pw)
         uv = camera.project(K, pc)
         rel = pw + lie.quat_rotate(lie.quat_conj(T[:4]), T[4:7])
@@ -445,33 +433,36 @@ def fuse_neighbors(state: MapState, kf_id: int, cfg: SLAMConfig,
             band & (vcos > 0.5)
         pred = predict_scale(d, max_d, sf, cfg.orb.n_levels)
         radius = radius_base * sf ** pred.to(torch.float32)
-        dist = hamming.hamming_matrix(desc, state.kf_desc[dst])
-        gate = search.window_gate(uv, state.kf_uv[dst], radius)
-        gate = gate & search.octave_gate(pred, state.kf_octave[dst], -1, 1)
+        kf_uv, kf_oct = row(state.kf_uv, dst), row(state.kf_octave, dst)
+        dist = hamming.hamming_matrix(desc, row(state.kf_desc, dst))
+        gate = search.window_gate(uv, kf_uv, radius)
+        gate = gate & search.octave_gate(pred, kf_oct, -1, 1)
         res = search.match_descriptors(dist, gate, cfg.match.th_low, None,
-                                       ok, state.kf_kp_valid[dst])
+                                       ok, row(state.kf_kp_valid, dst))
         matched = res.idx >= 0
         kp = res.idx.clamp(min=0)
-        err = torch.sum((state.kf_uv[dst][kp] - uv) ** 2, -1)
-        sig2 = (sf ** state.kf_octave[dst][kp].to(torch.float32)) ** 2
+        err = torch.sum((kf_uv[kp] - uv) ** 2, -1)
+        sig2 = (sf ** kf_oct[kp].to(torch.float32)) ** 2
         matched = matched & (err / sig2 < 5.99)
         return torch.where(matched, kp, -1), matched
 
     # ---- direction A: the new KF's points into every target, applied in
     # one batched pass from one map snapshot ----
-    pids0 = state.kf_obs[kf_id]
+    pids0 = row(state.kf_obs, kf_id)
     safe0 = pids0.long().clamp(min=0)
     ok0 = (pids0 >= 0) & state.mp_valid[safe0]
     nb_safe = neighbors.clamp(min=0)
     T_ = neighbors.shape[0]
-    kp_a = torch.full((T_, N), -1, dtype=torch.int64, device=dev)
-    m_a = torch.zeros((T_, N), dtype=torch.bool, device=dev)
-    for t, nb in enumerate(neighbors.tolist()):
-        if nb >= 0:
-            kp_a[t], m_a[t] = match_points_into(
-                state, state.mp_pos[safe0], state.mp_desc[safe0],
-                state.mp_min_dist[safe0], state.mp_max_dist[safe0],
-                state.mp_normal[safe0], ok0, nb)
+    kp_a, m_a = [], []
+    for t in range(T_):     # every slot; a -1 slot matches nothing
+        kp, m = match_points_into(
+            state, state.mp_pos[safe0], state.mp_desc[safe0],
+            state.mp_min_dist[safe0], state.mp_max_dist[safe0],
+            state.mp_normal[safe0], ok0, nb_safe[t])
+        m = m & (neighbors[t] >= 0)
+        kp_a.append(torch.where(m, kp, -1))
+        m_a.append(m)
+    kp_a, m_a = torch.stack(kp_a), torch.stack(m_a)
     state = _apply_fuse_onepass(state, nb_safe, neighbors >= 0, kp_a, m_a,
                                 pids0)
 
@@ -493,7 +484,7 @@ def fuse_neighbors(state: MapState, kf_id: int, cfg: SLAMConfig,
 
     cnt = point_obs_count(state)
     kpb = kp_b.clamp(min=0)
-    existing = state.kf_obs[kf_id][kpb].long()
+    existing = row(state.kf_obs, kf_id)[kpb].long()
     ex_safe = existing.clamp(min=0)
     add_case = m_b & (existing < 0) & (src_pid >= 0)
     merge_case = m_b & (existing >= 0) & (existing != src_pid) & \
@@ -513,7 +504,9 @@ def fuse_neighbors(state: MapState, kf_id: int, cfg: SLAMConfig,
 
     # refresh attributes of the points observed by the new KF and targets
     # (invalid target slots read keyframe 0, as in the JAX version)
-    kfs = torch.cat([torch.as_tensor([kf_id], device=dev), nb_safe])
+    kf1 = kf_id.reshape(1).long() if isinstance(kf_id, torch.Tensor) else \
+        torch.full((1,), kf_id, dtype=torch.int64, device=dev)
+    kfs = torch.cat([kf1, nb_safe])
     touched = state.kf_obs[kfs]
     tmask = mask_from_ids(touched, touched >= 0, M)
     state = ops.update_point_attributes(

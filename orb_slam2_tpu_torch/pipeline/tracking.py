@@ -2,7 +2,9 @@
 
 Each phase is a function over (MapState, TrackState, Frame).  Where the JAX
 step branches with `lax.cond` (motion model vs reference keyframe), this
-port branches on the host: the flag is one scalar read per frame.
+port branches with `core.control.cond`: on the device under CUDA graph
+capture, by one marked predicate read eagerly.  Nothing else in the step
+reads the device from the host.
 
 `cur_pids [N]` — the map-point id matched to each current keypoint (-1 =
 none) — plays the role of the reference's `Frame::mvpMapPoints`.
@@ -16,10 +18,10 @@ import numpy as np
 import torch
 
 from orb_slam2_tpu_torch.config import SLAMConfig
-from orb_slam2_tpu_torch.core import camera, lie
+from orb_slam2_tpu_torch.core import camera, control, lie
 from orb_slam2_tpu_torch.map.state import (MapState, count_ids, first_flagged,
-                                           mask_from_ids, resolve_replaced,
-                                           stable_topk)
+                                           mask_from_ids, put_row,
+                                           resolve_replaced, row, stable_topk)
 from orb_slam2_tpu_torch.matching import hamming, search
 from orb_slam2_tpu_torch.pipeline.frame import Frame
 from orb_slam2_tpu_torch.solvers import pose_opt
@@ -39,11 +41,13 @@ HUD_N_MP = 4
 HUD_REF_KF = 5
 HUD_LEN = 6
 
-# Counts of the depth-sensor events, summed on the device beside the calls
-# (no host read on the path); set one to 0 to restart it.
-need_close_frames = 0   # keyframe decisions with too few close points tracked
-vo_candidates = 0       # VO points offered to the motion-model search
-vo_inliers = 0          # VO points the pose optimization kept as inliers
+# Counts of the depth-sensor events, summed on the device in place beside
+# the calls (no host read on the path, and counted under graph replay);
+# `int(c)` reads one, `c.reset()` restarts it.
+need_close_frames = control.Count()  # keyframe decisions with too few close
+#                                      points tracked
+vo_candidates = control.Count()      # VO points offered to the motion model
+vo_inliers = control.Count()         # VO points kept as pose-LM inliers
 
 
 class TrackState(NamedTuple):
@@ -119,18 +123,20 @@ def empty_track_state(cfg: SLAMConfig, device=None) -> TrackState:
 
 def record_traj(state: MapState, ts: TrackState, frame: Frame,
                 ok) -> TrackState:
-    """Log this frame's pose (Tcw and Tcr relative to the reference KF)."""
-    i = int(frame.frame_id.clamp(0, ts.traj.shape[0] - 1))
-    ref = ts.ref_kf.long().clamp(min=0)
-    rel = lie.se3_compose(ts.T, lie.se3_inverse(state.kf_pose[ref]))
+    """Log this frame's pose (Tcw and Tcr relative to the reference KF) at
+    the frame's row, chosen on the device."""
     dev = ts.T.device
-    row = torch.cat([ts.T, rel, torch.stack([
-        ts.ref_kf.to(torch.float32),
-        torch.as_tensor(ok, dtype=torch.float32, device=dev).reshape(()),
-        frame.timestamp.to(torch.float32).reshape(())])])
-    traj = ts.traj.clone()
-    traj[i] = row
-    return ts._replace(traj=traj)
+    fid = torch.as_tensor(frame.frame_id, device=dev)
+    i = fid.long().clamp(0, ts.traj.shape[0] - 1)
+    ref = ts.ref_kf.long().clamp(min=0)
+    rel = lie.se3_compose(ts.T, lie.se3_inverse(row(state.kf_pose, ref)))
+    okf = ok.to(torch.float32) if isinstance(ok, torch.Tensor) else \
+        torch.full((), float(ok), device=dev)
+    r = torch.cat([ts.T, rel, torch.stack([
+        ts.ref_kf.to(torch.float32), okf.reshape(()),
+        torch.as_tensor(frame.timestamp, device=dev).to(
+            torch.float32).reshape(())])])
+    return ts._replace(traj=put_row(ts.traj, i, r))
 
 
 # ---------------------------------------------------------------------------
@@ -185,12 +191,13 @@ def vo_point_mask(ts: TrackState, pids: torch.Tensor, cfg: SLAMConfig,
     with a depth sensor, the keypoints with depth under the close threshold
     (`th_depth` baselines) and no map point.  [N] bool; all False outside
     localization mode or for a monocular camera."""
-    if cfg.sensor == 0:
+    if cfg.sensor == 0 or not isinstance(loc_only, torch.Tensor) and \
+            not loc_only:
         return torch.zeros_like(ts.last_valid)
     thd = cfg.camera.th_depth * cfg.camera.baseline
-    return (torch.as_tensor(loc_only, device=ts.last_valid.device) &
-            ts.last_valid & (pids < 0) & (ts.last_depth > 0) &
-            (ts.last_depth < thd))
+    m = ts.last_valid & (pids < 0) & (ts.last_depth > 0) & \
+        (ts.last_depth < thd)
+    return m & loc_only if isinstance(loc_only, torch.Tensor) else m
 
 
 def track_with_motion_model(state: MapState, ts: TrackState, frame: Frame,
@@ -205,8 +212,8 @@ def track_with_motion_model(state: MapState, ts: TrackState, frame: Frame,
     cur_pids stay -1).  The JAX step runs this branch on every depth-sensor
     frame with an all-False mask outside localization mode, which selects
     the map points' values unchanged: skipping it on a host False gives the
-    same bits."""
-    global vo_candidates, vo_inliers
+    same bits.  `loc_only` is a Python bool: a constant of a captured
+    program (one graph a mode)."""
     dev = frame.uv.device
     K = camera.intrinsics(cfg.camera, dev)
     bf = cfg.camera.bf
@@ -220,7 +227,7 @@ def track_with_motion_model(state: MapState, ts: TrackState, frame: Frame,
     vo = cfg.sensor != 0 and bool(loc_only)
     if vo:
         vo_ok = vo_point_mask(ts, pids, cfg, loc_only)
-        vo_candidates = vo_candidates + vo_ok.sum()
+        vo_candidates.add(vo_ok.sum())
         pc_last = camera.unproject(K, ts.last_uv, ts.last_depth)
         pw_vo = lie.se3_apply(lie.se3_inverse(ts.last_T), pc_last)
         pw = torch.where(vo_ok[:, None], pw_vo, pw)
@@ -249,7 +256,7 @@ def track_with_motion_model(state: MapState, ts: TrackState, frame: Frame,
     opt = _pose_opt_from_pos(frame, cur_pos, cur_has, T_pred, K, bf, cfg)
     cur_pids = torch.where(opt.inliers, cur_pids, -1)
     if vo:      # an inlier matched to no map point is a VO point
-        vo_inliers = vo_inliers + (opt.inliers & (cur_pids < 0)).sum()
+        vo_inliers.add((opt.inliers & (cur_pids < 0)).sum())
     ok = (n_matches >= cfg.tracking.min_matches_motion) & \
          (opt.n_inliers >= cfg.tracking.min_inliers_track)
     return cur_pids, opt, ok
@@ -263,16 +270,17 @@ def track_reference_keyframe(state: MapState, ts: TrackState, frame: Frame,
     dev = frame.uv.device
     K = camera.intrinsics(cfg.camera, dev)
     bf = cfg.camera.bf
-    r = ts.ref_kf.long()
-    kf_pids = resolve_replaced(state, state.kf_obs[r])
+    r = ts.ref_kf.long().clamp(min=0)
+    kf_pids = resolve_replaced(state, row(state.kf_obs, r))
     safe = kf_pids.long().clamp(min=0)
-    row_valid = (kf_pids >= 0) & state.kf_kp_valid[r] & state.mp_valid[safe]
-    dist = hamming.hamming_matrix(state.kf_desc[r], frame.desc)
+    row_valid = (kf_pids >= 0) & row(state.kf_kp_valid, r) & \
+        state.mp_valid[safe]
+    dist = hamming.hamming_matrix(row(state.kf_desc, r), frame.desc)
     res = search.match_descriptors(
         dist, torch.ones_like(dist, dtype=torch.bool), cfg.match.th_low,
         cfg.match.nn_ratio_track_ref, row_valid, frame.valid)
-    idx = search.rotation_consistency(state.kf_angle[r], frame.angle, res.idx,
-                                      cfg.match.histo_length)
+    idx = search.rotation_consistency(row(state.kf_angle, r), frame.angle,
+                                      res.idx, cfg.match.histo_length)
     N = frame.uv.shape[0]
     cur_pids = _scatter_to_kps(idx, torch.where(idx >= 0, kf_pids, -1), N, -1)
     n_matches = torch.sum((cur_pids >= 0).to(torch.int32))
@@ -359,12 +367,11 @@ def need_new_keyframe(state: MapState, ts: TrackState, frame: Frame,
     tracked frame: need_kf, a bool tensor.  A depth sensor's decisions
     that found too few close points tracked while enough close candidates
     exist (need_close) are counted in `need_close_frames`."""
-    global need_close_frames
     n_kf = state.n_kf
     min_obs = torch.where(n_kf <= 2, 2, cfg.tracking.kf_min_obs)
     # stereo observations count double (MapPoint::AddObservation), over
     # the reference keyframe's points only
-    robs = state.kf_obs[ts.ref_kf.long().clamp(min=0)]
+    robs = row(state.kf_obs, ts.ref_kf.long().clamp(min=0))
     psafe = robs.long().clamp(min=0)
     okf_r = state.mp_obs_kf[psafe].long()
     okp_r = state.mp_obs_kp[psafe].long()
@@ -387,7 +394,7 @@ def need_new_keyframe(state: MapState, ts: TrackState, frame: Frame,
         n_ntc = torch.sum((close & (cur_pids < 0)).to(torch.int32))
         need_close = (n_tc < cfg.tracking.close_depth_n) & \
             (n_ntc > cfg.tracking.close_trackable_min)
-        need_close_frames = need_close_frames + need_close.to(torch.int32)
+        need_close_frames.add(need_close)
         # c1b: MinFrames passed + mapping idle (Tracking.cc:1031), the
         # min_kf_gap throttle standing in for the idle flag
         c1b = gap_ok
@@ -414,16 +421,20 @@ def build_track_step(cfg: SLAMConfig):
     Tracking::Track, Tracking.cc:267-506).  `loc_only` (localization mode)
     lets a depth sensor's VO points into the motion-model search."""
     def step(state: MapState, ts: TrackState, frame: Frame, loc_only=False):
-        # --- phase 1: motion model, reference-KF fallback (host branch) ---
-        if bool(ts.has_velocity):
-            pids, opt, ok1 = track_with_motion_model(state, ts, frame, cfg,
-                                                     loc_only)
-            if not bool(ok1):
-                pids, opt, ok1 = track_reference_keyframe(state, ts, frame,
-                                                          cfg)
-        else:
-            pids, opt, ok1 = track_reference_keyframe(state, ts, frame, cfg)
-        T = opt.T
+        # --- phase 1: motion model, reference-KF fallback (device branches,
+        # JAX tracking.py:394-398; the reference keyframe runs at most once)
+        def do_motion():
+            pids, opt, ok = track_with_motion_model(state, ts, frame, cfg,
+                                                    loc_only)
+            return pids.to(torch.int32), opt.T, ok
+
+        def do_ref():
+            pids, opt, ok = track_reference_keyframe(state, ts, frame, cfg)
+            return pids.to(torch.int32), opt.T, ok
+
+        pids, T, ok1 = control.cond(ts.has_velocity, do_motion, do_ref)
+        pids, T, ok1 = control.cond(ts.has_velocity & ~ok1, do_ref,
+                                    lambda: (pids, T, ok1))
 
         # --- phase 2: local map ---
         after_reloc = (frame.frame_id - ts.last_reloc_frame_id) < \

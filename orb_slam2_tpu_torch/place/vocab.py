@@ -322,8 +322,11 @@ def build_transform(vocab: Vocabulary, pad_to: Optional[int] = None,
                 node_lu = node
         word = wid[node]
         word_ok = valid & (word >= 0)
-        count = torch.bincount(torch.where(word_ok, word, W).long(),
-                               minlength=W + 1)[:W]
+        # an integer scatter-add into a count of fixed length (exact in any
+        # order; `bincount` would read its length from the device)
+        tgt = torch.where(word_ok, word, W).long()
+        count = torch.zeros(W + 1, dtype=torch.int64, device=desc.device
+                            ).scatter_add_(0, tgt, torch.ones_like(tgt))[:W]
         bow = count.to(torch.float32) * weight
         bow = bow / torch.clamp(torch.sum(torch.abs(bow)), min=1e-12)
         if pad_to is not None and pad_to > W:

@@ -16,9 +16,11 @@ reduction, exchanged through distributed shared memory and mbarriers, with
 the 6x6 solve repeated in every thread instead of broadcast from one; it
 sums in a fixed order without atomics, so launches are bit-identical.
 
-`launches` counts launches of the kernel (a batch of B problems is one).
-`load(cluster)` and `run(lib, ...)` give the same kernel built with another
-cluster size, to time it; the main path always takes the source's own.
+`device_launches()` reads the launches as the kernel counts them on the
+device (also under CUDA graph replay; a batch of B problems is one),
+`reset_device_launches()` zeroes them.  `load(cluster)` and
+`run(lib, ...)` give the same kernel built with another cluster size, to
+time it, uncounted; the main path always takes the source's own.
 """
 
 from __future__ import annotations
@@ -29,11 +31,22 @@ import torch
 
 from orb_slam2_tpu_torch import cuda_build
 from orb_slam2_tpu_torch.config import BAConfig
+from orb_slam2_tpu_torch.core import control
 
 SOURCE = cuda_build.source("pose_lm.cu")
 
-launches = 0
 _lib = None
+_counts = {}        # device -> int32 [1]
+
+
+def device_launches() -> int:
+    """Launches counted by the kernel on every device."""
+    return sum(int(t) for t in _counts.values())
+
+
+def reset_device_launches():
+    for t in _counts.values():
+        t.zero_()
 
 
 def build(verbose: bool = False, cluster=None) -> str:
@@ -48,7 +61,7 @@ def open_library(path: str):
     launch takes, and `cluster`, its blocks per problem."""
     lib = ctypes.CDLL(path)
     p, f, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
-    lib.pose_lm_launch.argtypes = [p] * 8 + [f] * 7 + [i] * 4 + [p] * 6
+    lib.pose_lm_launch.argtypes = [p] * 8 + [f] * 7 + [i] * 4 + [p] * 7
     lib.pose_lm_launch.restype = ctypes.c_int
     for fn in (lib.pose_lm_max_points, lib.pose_lm_cluster):
         fn.argtypes, fn.restype = [], ctypes.c_int
@@ -78,17 +91,19 @@ def pose_lm_cuda(T0, pw, obs_uv, obs_ur, inv_sigma2, valid, is_stereo, K,
     device.  Returns (T [B, 7], inliers [B, N] bool, n_inliers [B] int32,
     chi2 [B] float32 summed over the inliers, n_iter [B] int32 LM
     iterations run over all rounds)."""
-    global launches
-    out = run(None, T0, pw, obs_uv, obs_ur, inv_sigma2, valid, is_stereo,
-              K, bf, cfg)
-    launches += 1
-    return out
+    count = _counts.get(T0.device)
+    if count is None:
+        count = _counts[T0.device] = control.register(
+            torch.zeros((), dtype=torch.int32, device=T0.device))
+    return run(None, T0, pw, obs_uv, obs_ur, inv_sigma2, valid, is_stereo,
+               K, bf, cfg, count)
 
 
 def run(lib, T0, pw, obs_uv, obs_ur, inv_sigma2, valid, is_stereo, K,
-        bf: float, cfg: BAConfig = BAConfig()):
+        bf: float, cfg: BAConfig = BAConfig(), count=None):
     """`pose_lm_cuda` through the library `lib` (from `load`; None: the
-    source's own), uncounted.  Refuses bad input before building."""
+    source's own), counted only into the int32 device tensor `count` when
+    one is given.  Refuses bad input before building."""
     B, N = valid.shape
     ins = (T0, pw, obs_uv, obs_ur, inv_sigma2, valid, is_stereo, K)
     want = (((B, 7), torch.float32), ((B, N, 3), torch.float32),
@@ -119,7 +134,8 @@ def run(lib, T0, pw, obs_uv, obs_ur, inv_sigma2, valid, is_stereo, K,
         cfg.chi2_mono, cfg.chi2_stereo, cfg.huber_mono ** 2,
         cfg.huber_stereo ** 2, cfg.lm_lambda_init, cfg.lm_lambda_factor,
         cfg.pose_opt_rounds, cfg.pose_opt_iters, B, N, T.data_ptr(),
-        inl.data_ptr(), n_in.data_ptr(), chi2.data_ptr(), n_iter.data_ptr())
+        inl.data_ptr(), n_in.data_ptr(), chi2.data_ptr(), n_iter.data_ptr(),
+        None if count is None else count.data_ptr())
     if err != 0:
         raise RuntimeError(f"pose_lm kernel launch failed: cudaError {err}")
     return T, inl, n_in, chi2, n_iter

@@ -22,13 +22,13 @@ from typing import NamedTuple
 import torch
 
 from orb_slam2_tpu_torch.config import BAConfig
-from orb_slam2_tpu_torch.core import lie
+from orb_slam2_tpu_torch.core import control, lie
 from orb_slam2_tpu_torch.solvers import pose_lm_cuda
 
-# pose_optimize calls on CUDA tensors, each one kernel launch
-cuda_calls = 0
-# when a list, each of those calls appends its arguments to it: a run's
-# problems, to hold the kernel against its plain version at their shapes
+# when a list, each pose_optimize call on CUDA tensors made outside a
+# capture appends its arguments to it: a run's problems, to hold the kernel
+# against its plain version at their shapes (and, eagerly, one entry a
+# kernel launch)
 recorded = None
 
 
@@ -80,12 +80,10 @@ def pose_optimize(T0, pw, obs_uv, obs_ur, inv_sigma2, valid, is_stereo,
 
     T0: [7]; pw: [N, 3]; obs_uv: [N, 2]; obs_ur: [N]; inv_sigma2: [N];
     valid: [N] bool; is_stereo: [N] bool; K: [4]; bf: float."""
-    global cuda_calls
     if not pw.is_cuda:
         return pose_optimize_plain(T0, pw, obs_uv, obs_ur, inv_sigma2, valid,
                                    is_stereo, K, bf, cfg)
-    cuda_calls += 1
-    if recorded is not None:
+    if recorded is not None and not control.capturing():
         recorded.append((T0, pw, obs_uv, obs_ur, inv_sigma2, valid, is_stereo,
                          K, bf, cfg))
     T, inl, n_in, chi2, _ = pose_lm_cuda.pose_lm_cuda(
@@ -109,7 +107,8 @@ def pose_optimize_plain(T0, pw, obs_uv, obs_ur, inv_sigma2, valid, is_stereo,
 
     def lm_round(T, active, use_huber):
         act = active.to(torch.float32)
-        lam = torch.tensor(cfg.lm_lambda_init, dtype=torch.float32, device=dev)
+        lam = torch.full((), cfg.lm_lambda_init, dtype=torch.float32,
+                         device=dev)
         done = torch.zeros((), dtype=torch.bool, device=dev)
         for _ in range(cfg.pose_opt_iters):
             e, J = _residuals_jac(T, pw, obs_uv, obs_ur, K, bf, is_stereo)

@@ -4,8 +4,12 @@ atlas and through the single-image entry points bit-exact, the pose LM
 within 1e-4 with the same inliers (also with every row stereo), two
 launches bit-identical — the per-level extractor with the kernel against
 the same extractor with the plain version on the card, and the mono and
-two-image extractors and the stereo frame function, card against CPU.
-They skip without a card.  This file imports neither JAX nor the JAX
+two-image extractors and the stereo frame function, card against CPU —
+and the captured step: the kernels' device launch counts (graph replays
+included), `core.control`'s IF nodes against the eager helpers, and a
+session's replayed frames against its eager frames, bit for bit, with no
+synchronisation under `set_sync_debug_mode("error")`.  They skip without
+a card.  This file imports neither JAX nor the JAX
 package, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -39,11 +43,11 @@ def test_fast_kernel_matches_plain_on_card(shape):
     _card()
     rng = np.random.RandomState(shape[0] * 1000 + shape[1])
     img = torch.from_numpy((rng.rand(*shape) * 255).astype(np.float32)).cuda()
-    before = fast_cuda.launches
+    before = fast_cuda.device_counts()[0]
     kn, kr = fast_cuda.fast_nms_atlas(img[None], [shape])
     pn, pr = fast_cuda.fast_nms_atlas_plain(img[None], [shape])
     torch.cuda.synchronize()
-    assert fast_cuda.launches == before + 1
+    assert fast_cuda.device_counts()[0] == before + 1
     assert torch.equal(kn, pn) and torch.equal(kr, pr)
 
 
@@ -56,12 +60,12 @@ def test_single_image_fast_matches_plain_on_card(shape):
     _card()
     rng = np.random.RandomState(shape[0] + 7 * shape[1])
     img = torch.from_numpy((rng.rand(*shape) * 255).astype(np.float32)).cuda()
-    before = fast_cuda.launches
+    before = fast_cuda.device_counts()[0]
     kn, kr = fast_cuda.fast_nms_raw(img)
     kn1 = fast_cuda.fast_nms(img)
     pn, pr = fast_cuda.fast_nms_raw_plain(img)
     torch.cuda.synchronize()
-    assert fast_cuda.launches == before + 2
+    assert fast_cuda.device_counts()[0] == before + 2
     assert kn.shape == kr.shape == tuple(shape)
     assert torch.equal(kn, pn) and torch.equal(kr, pr) and torch.equal(kn1, pn)
 
@@ -86,12 +90,12 @@ def test_perlevel_extractor_kernel_matches_plain_on_card(preset):
     kern = build_extractor_perlevel(cfg.orb, cam.height, cam.width)
     plain = build_extractor_perlevel(cfg.orb, cam.height, cam.width, "cuda",
                                      use_kernel=False)
-    before = fast_cuda.launches
+    before = fast_cuda.device_counts()[0]
     fk = kern(img)
-    assert fast_cuda.launches == before + cfg.orb.n_levels
+    assert fast_cuda.device_counts()[0] == before + cfg.orb.n_levels
     fp = plain(img)
     torch.cuda.synchronize()
-    assert fast_cuda.launches == before + cfg.orb.n_levels
+    assert fast_cuda.device_counts()[0] == before + cfg.orb.n_levels
     assert fk.uv.is_cuda and int(fk.valid.sum()) > 0.5 * cfg.orb.n_features
     for a, b in zip(fk, fp):
         assert torch.equal(a, b)
@@ -112,11 +116,11 @@ def test_fast_atlas_kernel_matches_plain_on_card(H, W, n_images):
     rng = np.random.RandomState(H + n_images)
     atlas = torch.from_numpy((rng.rand(8 * n_images, H, W) * 255).astype(
         np.float32)).cuda()
-    before = fast_cuda.launches
+    before = fast_cuda.device_counts()[0]
     kn, kr = fast_cuda.fast_nms_atlas(atlas, levels)
     pn, pr = fast_cuda.fast_nms_atlas_plain(atlas, levels)
     torch.cuda.synchronize()
-    assert fast_cuda.launches == before + 1
+    assert fast_cuda.device_counts()[0] == before + 1
     assert torch.equal(kn, pn) and torch.equal(kr, pr)
 
 
@@ -131,11 +135,11 @@ def test_extractor_on_card_matches_cpu():
     cfg = config.SLAMConfig()
     img = synthetic.generate(cfg.camera, n_frames=1, n_points=50,
                              seed=0).images[0]
-    before = fast_cuda.launches
+    before = fast_cuda.device_counts()[0]
     g = build_atlas_extractor(cfg.orb, 480, 640, "cuda")(
         torch.from_numpy(img).cuda())
     c = build_atlas_extractor(cfg.orb, 480, 640, "cpu")(torch.from_numpy(img))
-    assert fast_cuda.launches == before + 1
+    assert fast_cuda.device_counts()[0] == before + 1
     assert float(_same_slots(g, c).float().mean()) >= 0.99
 
 
@@ -165,12 +169,12 @@ def test_two_image_extractor_on_card_matches_cpu():
     cfg = config.SLAMConfig(sensor=config.STEREO,
                             camera=config.CameraConfig(bf=40.0))
     pair = torch.stack(_stereo_pair(cfg))
-    before = fast_cuda.launches
+    before = fast_cuda.device_counts()[0]
     g, ga = build_atlas_extractor(cfg.orb, 480, 640, "cuda", n_images=2,
                                   return_atlas=True)(pair.cuda())
     c, ca = build_atlas_extractor(cfg.orb, 480, 640, "cpu", n_images=2,
                                   return_atlas=True)(pair)
-    assert fast_cuda.launches == before + 1
+    assert fast_cuda.device_counts()[0] == before + 1
     assert ga.shape == (16, 480, 640)
     assert float((ga.cpu() - ca).abs().max()) <= 1e-3
     for b in range(2):
@@ -190,10 +194,10 @@ def test_stereo_frame_fn_on_card_matches_cpu():
     cfg = config.SLAMConfig(sensor=config.STEREO,
                             camera=config.CameraConfig(bf=40.0))
     left, right = _stereo_pair(cfg)
-    before = fast_cuda.launches
+    before = fast_cuda.device_counts()[0]
     g = build_stereo_frame_fn(cfg, "cuda")(left.cuda(), right.cuda(), 0, 0.0)
     c = build_stereo_frame_fn(cfg, "cpu")(left, right, 0, 0.0)
-    assert fast_cuda.launches == before + 1
+    assert fast_cuda.device_counts()[0] == before + 1
     same = (g.valid.cpu() == c.valid) & \
         ((g.uv_raw.cpu() - c.uv_raw).abs().amax(-1) <= 1e-3)
     assert float(same.float().mean()) >= 0.99
@@ -244,12 +248,10 @@ def test_pose_lm_kernel_matches_plain_on_card(n, stereo_frac):
     KITTI preset's keypoint capacity."""
     _card()
     p = _pose_problem(n, n, stereo_frac)
-    before, calls = pose_lm_cuda.launches, pose_opt.cuda_calls
+    before = pose_lm_cuda.device_launches()
     k = pose_opt.pose_optimize(*p)
     r = pose_opt.pose_optimize_plain(*p)
-    torch.cuda.synchronize()
-    assert pose_lm_cuda.launches == before + 1
-    assert pose_opt.cuda_calls == calls + 1
+    assert pose_lm_cuda.device_launches() == before + 1
     assert float((k.T - r.T).abs().max()) <= 1e-4
     assert float((k.inliers == r.inliers).float().mean()) >= 0.99
     assert abs(int(k.n_inliers) - int(r.n_inliers)) <= 2
@@ -298,3 +300,102 @@ def test_pose_lm_kernel_refuses_cpu_tensors():
            x.shape != (4,) else x for x in p[:7]]
     with pytest.raises(ValueError, match="pose_lm_cuda expects"):
         pose_lm_cuda.pose_lm_cuda(*cpu, p[7], p[8])
+
+
+@pytest.mark.cuda
+def test_kernels_count_their_launches_on_the_device():
+    """Each kernel adds one to its device count a launch (FAST also the
+    planes it covered), also when replayed from a CUDA graph."""
+    _card()
+    levels = pyramid.level_shapes(480, 640, 8, 1.2)
+    atlas = torch.rand(16, 480, 640, device="cuda") * 255
+    fast_cuda.fast_nms_atlas(atlas, levels)          # warm
+    fast_cuda.reset_device_counts()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fast_cuda.fast_nms_atlas(atlas, levels)
+    for _ in range(3):
+        g.replay()
+    fast_cuda.fast_nms_atlas(atlas, levels)
+    assert fast_cuda.device_counts() == (4, 64)
+    pose_lm_cuda.reset_device_launches()
+    rng = np.random.RandomState(0)
+    T0 = torch.tensor([1.0, 0, 0, 0, 0, 0, 0], device="cuda")
+    pw = torch.from_numpy((rng.randn(64, 3) + [0, 0, 5]).astype(np.float32)
+                          ).cuda()
+    uv = torch.from_numpy(rng.rand(64, 2).astype(np.float32) * 100).cuda()
+    one = torch.ones(64, device="cuda")
+    ok = torch.ones(64, dtype=torch.bool, device="cuda")
+    K = torch.tensor([500.0, 500, 320, 240], device="cuda")
+    for _ in range(2):
+        pose_opt.pose_optimize(T0, pw, uv, -one, one, ok, ~ok, K, 0.0)
+    assert pose_lm_cuda.device_launches() == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", [0, 1, 2])
+def test_control_helpers_under_capture(index):
+    """`cond` and `switch` captured once as CUDA graph IF nodes, replayed
+    with each predicate and index: the results equal the eager helpers'.
+    The branches return their operands' structure, so both are carries:
+    the results are written into the operands, which are returned."""
+    _card()
+    from orb_slam2_tpu_torch.core import control
+    x = torch.linspace(-1, 1, 8, device="cuda")
+    y = torch.arange(8.0, device="cuda")
+    branches = [lambda a, b: (a + b, a * 2.0), lambda a, b: (a - b, b),
+                lambda a, b: (torch.sin(a) * b, torch.cos(b))]
+    idx = torch.zeros((), dtype=torch.int64, device="cuda")
+    pred = torch.zeros((), dtype=torch.bool, device="cuda")
+    ops, carry = (x.clone(), y.clone()), (x.clone(), y.clone())
+    g = torch.cuda.CUDAGraph()
+    with control.capture(g, torch.device("cuda")):
+        s = control.switch(idx, branches, ops)
+        c = control.cond(pred, branches[2], control.identity, carry)
+    idx.fill_(index)
+    pred.fill_(index == 1)
+    g.replay()
+    torch.cuda.synchronize()
+    want = control.switch(torch.tensor(index), branches, (x, y))
+    assert all(a is b for a, b in zip(s, ops))
+    for a, b in zip(s, want):
+        assert torch.equal(a, b)
+    want_c = branches[2](x, y) if index == 1 else (x, y)
+    assert all(a is b for a, b in zip(c, carry))
+    for a, b in zip(carry, want_c):
+        assert torch.equal(a, b)
+    control.release(g)
+
+
+def _mono_run(capture: bool, n: int = 12):
+    from orb_slam2_tpu_torch.io import synthetic
+    from orb_slam2_tpu_torch.pipeline.system import SLAM
+    cfg = config.SLAMConfig()
+    seq = synthetic.generate(cfg.camera, n_frames=n, n_points=500,
+                             trajectory="xyz", seed=0)
+    slam = SLAM(cfg, device="cuda", capture=capture)
+    for f in range(n):
+        slam.track_mono(seq.images[f], seq.timestamps[f])
+        if capture and slam.graph_replays:
+            torch.cuda.set_sync_debug_mode("error")
+    torch.cuda.set_sync_debug_mode(0)
+    slam.flush()
+    return slam
+
+
+@pytest.mark.cuda
+def test_replayed_frames_equal_eager_frames():
+    """The bench mono configuration over 12 frames (10 of them through
+    the step): the captured session's replays, under
+    set_sync_debug_mode("error") once the graph exists, give the eager
+    session's state bit for bit, one graph launch a frame."""
+    _card()
+    try:
+        g = _mono_run(True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    e = _mono_run(False)
+    assert g.graph_replays == g.frames_stepped >= 10
+    for a, b in ((g.state, e.state), (g.ts, e.ts)):
+        for f, x, y in zip(a._fields, a, b):
+            assert torch.equal(x, y), f

@@ -74,9 +74,9 @@ def test_fast_plain_matches_pallas_interpret_exactly(shape):
     kernel on that level."""
     img = _img(shape, 1)
     pn, pr = fast_nms_raw_pallas(jnp.asarray(img), interpret=True)
-    before = fast_cuda.launches
+    before = fast_cuda.device_counts()[0]
     tn, tr = fast_cuda.fast_nms_atlas(torch.from_numpy(img)[None], [shape])
-    assert fast_cuda.launches == before      # CPU tensor: plain version
+    assert fast_cuda.device_counts()[0] == before     # CPU: plain version
     np.testing.assert_array_equal(tn[0].numpy(), np.asarray(pn))
     np.testing.assert_array_equal(tr[0].numpy(), np.asarray(pr))
 
@@ -108,10 +108,10 @@ def test_fast_atlas_plain_matches_pallas_per_level(pallas_level_maps,
     bit for bit, the Pallas kernel run level by level and padded."""
     atlas, jn, jr = pallas_level_maps
     G = 8 * n_images
-    before = fast_cuda.launches
+    before = fast_cuda.device_counts()[0]
     tn, tr = fast_cuda.fast_nms_atlas(torch.from_numpy(atlas[:G]),
                                       ATLAS_LEVELS)
-    assert fast_cuda.launches == before
+    assert fast_cuda.device_counts()[0] == before
     np.testing.assert_array_equal(tn.numpy(), jn[:G])
     np.testing.assert_array_equal(tr.numpy(), jr[:G])
 
@@ -120,7 +120,7 @@ def test_fast_kernel_wrapper_rejects_bad_input():
     """The CUDA entry refuses, before any launch, what the kernel does not
     take: a tensor off the card, another dtype, another rank, a level
     larger than the plane, planes not a multiple of the levels."""
-    before = fast_cuda.launches
+    before = fast_cuda.device_counts()[0]
     lv = [(32, 32)]
     for bad, shapes in ((torch.zeros((1, 32, 32)), lv),
                         (torch.zeros((1, 32, 32), dtype=torch.float64), lv),
@@ -133,7 +133,7 @@ def test_fast_kernel_wrapper_rejects_bad_input():
                         (torch.zeros((3, 32, 32)), lv * 2)):
         with pytest.raises(ValueError):
             fast_cuda.fast_nms_atlas_plain(bad, shapes)
-    assert fast_cuda.launches == before
+    assert fast_cuda.device_counts()[0] == before
 
 
 def test_resize_matches_jax_image_resize():
@@ -241,10 +241,10 @@ def test_single_image_fast_matches_pallas_exactly():
     img = _img((96, 256), 5)
     jn, jr = fast_nms_raw_pallas(jnp.asarray(img), interpret=True)
     jn1 = fast_nms_pallas(jnp.asarray(img), interpret=True)
-    before = fast_cuda.launches
+    before = fast_cuda.device_counts()[0]
     tn, tr = fast_cuda.fast_nms_raw(torch.from_numpy(img))
     tn1 = fast_cuda.fast_nms(torch.from_numpy(img))
-    assert fast_cuda.launches == before
+    assert fast_cuda.device_counts()[0] == before
     np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
     np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
     np.testing.assert_array_equal(tn1.numpy(), np.asarray(jn1))

@@ -61,7 +61,8 @@ def test_importing_the_port_loads_no_jax():
         "solvers.pose_lm_cuda", "cuda_build", "frontend.extractor",
         "viz.raster", "viz.viewer", "viz.ar", "io.ros", "distributed",
         "distributed.runtime", "distributed.ba", "distributed.posegraph",
-        "distributed.dp", "distributed.launch")]
+        "distributed.dp", "distributed.launch", "core.control", "bench",
+        "frame_profile")]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
             "import chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -130,3 +131,20 @@ def test_ar_session_runs_on_cuda_by_default(monkeypatch):
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ARSession(SLAM(config.SLAMConfig()))
+
+
+def test_bench_runs_on_cuda_by_default(monkeypatch):
+    """The CLI's `bench` with no device: with no card it raises (the
+    command exits non-zero) instead of running on the CPU."""
+    from orb_slam2_tpu_torch import cli
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["bench"])
+
+
+def test_capture_needs_a_card():
+    """A session asked to capture its step on the CPU refuses."""
+    from orb_slam2_tpu_torch import config
+    from orb_slam2_tpu_torch.pipeline.system import SLAM
+    with pytest.raises(ValueError, match="CUDA graph"):
+        SLAM(config.SLAMConfig(), device="cpu", capture=True)

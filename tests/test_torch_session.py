@@ -267,7 +267,8 @@ def test_vo_points_in_motion_model_match_jax(vo_case):
     j_pids, j_opt, j_ok = jax.jit(
         lambda st, ts, fr: jtracking.track_with_motion_model(
             st, ts, fr, jcfg, jnp.asarray(True)))(jst, jts, jf)
-    ttracking.vo_candidates = ttracking.vo_inliers = 0
+    ttracking.vo_candidates.reset()
+    ttracking.vo_inliers.reset()
     t_pids, t_opt, t_ok = ttracking.track_with_motion_model(
         tst, tts, tf, tcfg, True)
     n_vo = int(ttracking.vo_point_mask(
@@ -309,7 +310,7 @@ def test_track_step_in_localisation_mode_matches_jax(vo_case):
     jst, jts, jf, tst, tts, tf, jcfg, tcfg = vo_case
     j_state, j_ts, j_pids, j_hud = jax.jit(jtracking.build_track_step(jcfg))(
         jst, jts, jf, jnp.asarray(True))
-    ttracking.need_close_frames = 0
+    ttracking.need_close_frames.reset()
     t_state, t_ts, t_pids, t_hud = ttracking.build_track_step(tcfg)(
         tst, tts, tf, True)
     # need_close by the reference's rule (Tracking.cc:1002-1037), counted

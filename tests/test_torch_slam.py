@@ -374,3 +374,45 @@ def test_gba_merge_after_two_chunks_matches_jax(carried):
                                rtol=0, atol=1e-3)
     _same_pose(tT.numpy(), jT, 1e-3)
     assert int(t.big_change) == int(j.big_change)
+
+
+def test_gba_snapshot_is_frozen_while_the_map_changes(carried):
+    """The session writes its map in place each frame.  Between the GBA's
+    start and its chunks a keyframe and a point are made and a snapshot
+    keyframe moves, in the port's state in place and in JAX's as new
+    arrays: the merge corrects the new keyframe through its spanning-tree
+    parent and the new point through it, as JAX's does (1e-3)."""
+    _, _, (jst, jts, tst, tts) = carried
+    live = type(tst)(*(x.clone() for x in tst))
+    jg, tg = JAsyncGBA(small_cfg(jconfig)), TAsyncGBA(small_cfg(tconfig))
+    jg.start(jst, 4)
+    tg.start(live, 4)
+    new = _fields(jst)
+    k = int(np.argmin(new["kf_valid"]))
+    p = int(np.flatnonzero(new["kf_valid"])[-1])
+    m = int(np.argmin(new["mp_valid"]))
+    new["kf_pose"][p, 4:] += 0.01           # a local BA moved it
+    new["kf_pose"][k] = new["kf_pose"][p]
+    new["kf_pose"][k, 4] += 0.05
+    new["kf_valid"][k], new["kf_parent"][k] = True, p
+    new["mp_valid"][m] = True
+    new["mp_pos"][m] = new["mp_pos"][np.flatnonzero(new["mp_valid"])[0]]
+    new["mp_obs_kf"][m] = -1
+    new["mp_obs_kf"][m, 0] = k
+    jst = jst._replace(**{f: jnp.asarray(new[f]) for f in
+                          ("kf_pose", "kf_valid", "kf_parent", "mp_valid",
+                           "mp_pos", "mp_obs_kf")})
+    for f in ("kf_pose", "kf_valid", "kf_parent", "mp_valid", "mp_pos",
+              "mp_obs_kf"):
+        getattr(live, f).copy_(torch.from_numpy(new[f]))
+    assert not jg.step() and not tg.step()
+    assert jg.step() and tg.step()
+    j, jT = jg.merge(jst, jts.T, jts.ref_kf)
+    t, tT = tg.merge(live, tts.T, tts.ref_kf)
+    np.testing.assert_allclose(t.kf_pose.numpy(), np.asarray(j.kf_pose),
+                               rtol=0, atol=1e-3)
+    v = np.asarray(j.mp_valid)
+    assert v[m]
+    np.testing.assert_allclose(t.mp_pos.numpy()[v], np.asarray(j.mp_pos)[v],
+                               rtol=0, atol=1e-3)
+    _same_pose(tT.numpy(), jT, 1e-3)

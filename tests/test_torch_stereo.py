@@ -491,7 +491,8 @@ def test_create_depth_points_matches_jax(jax_session, seq):
     cfg = _close_cfg(tconfig, sensor)
     t, tk = tops.insert_keyframe(tst, tf, tts.T,
                                  torch.full((n,), -1, dtype=torch.int32))
-    tmapping.depth_points = tmapping.close_depth_points = 0
+    tmapping.depth_points.reset()
+    tmapping.close_depth_points.reset()
     t = tmapping.create_depth_points(t, tk, cfg)
     assert tk == int(k)
     d = np.asarray(jf.depth)
