@@ -101,15 +101,22 @@ each of which fails the run when it fails:
  18. S RGB-D sequences stepped together (`distributed/dp.py`) at the RGB-D
      cell's configuration, on the bench renderer's 48-frame xyz sequences
      of seeds 0..S-1, S = 1, 2, 4, 8: FAST bit-exact on the 32- and
-     64-plane atlases of frame 0; each run one FAST launch a step over 8·S
-     planes, every pose LM through its kernel (2 a stepped frame, plus a
-     reference-keyframe fallback's), every sequence >= 90% tracked with
-     metric ATE <= 0.02 m; the S = 4 run's sequences against their own
-     S = 1 runs (bit-identical, or the same keyframe count and ATE within
-     1 mm, with the descriptors that differ counted); step ms, total
-     frames/s and its ratio to S = 1, the device idle share at S = 4,
-     peak memory at S = 8; `build_sharded_step` on a 1-rank gloo group
-     issues no collective in two profiled steps;
+     64-plane atlases of frame 0; every S through the captured program
+     (`DPProgram`: one graph replay a step, no synchronisation after
+     `init` under `set_sync_debug_mode("error")`) and through the eager
+     program on the same inputs (timed at S = 1, 2, 4): bit-identical
+     states and HUDs and equal device launch counts; each run one FAST
+     launch a step over 8·S planes, every pose LM through its kernel (2 a
+     stepped frame, plus the device-counted reference-keyframe fallbacks),
+     every sequence >= 90% tracked with metric ATE <= 0.02 m; the S = 4
+     run's sequences against their own S = 1 runs (bit-identical, or the
+     same keyframe count and ATE within 1 mm, with the descriptors that
+     differ counted); step ms (CUDA events, median and p90), window wall
+     ms, host ms a step call, total frames/s and its ratio to S = 1,
+     device ms a step and idle share (profiled over the same steps), FAST
+     and pose-LM device ms a launch under replay, peak memory and capture
+     seconds at S = 8; `build_sharded_step` on a 1-rank gloo group issues
+     no collective in two profiled steps;
  19. the sharded solvers: `distributed/launch.py` spawns 2 gloo ranks on
      the one card (CUDA tensors, joined by `init_multihost` from SLAM_*),
      observation-sharded BA on 64 cameras x 4,096 points, landmark-sharded
@@ -226,11 +233,14 @@ BATCH_FRAMES, BATCH = 60, 4
 AR_FRAMES = 60
 # phase 18: S RGB-D sequences stepped together (distributed/dp.py), the
 # bench renderer's xyz sequence of seed s for s < S (scripts/
-# dp_slam_bench.py --frames 48, at the bench's 500 points); DP_COMPARE's
-# sequences are held against their own S = 1 runs; the last DP_PROFILED
-# steps of that run are profiled (device idle share), the steps from the
-# third up to them timed
-DP_FRAMES, DP_SIZES, DP_COMPARE, DP_PROFILED = 48, (1, 2, 4, 8), 4, 8
+# dp_slam_bench.py --frames 48, at the bench's 500 points); every S runs
+# through the captured program (DPProgram), twice: timed, then profiled
+# over the same steps (the window from step DP_WARM to the end; the first
+# step captures), and eagerly on the same inputs, held bit-identical: the
+# eager runs at DP_EAGER's sizes timed, at the others profiled;
+# DP_COMPARE's sequences are held against their own S = 1 runs
+DP_FRAMES, DP_SIZES, DP_COMPARE = 48, (1, 2, 4, 8), 4
+DP_EAGER, DP_WARM = (1, 2, 4), 8
 DP_ATE_MARGIN_M = 0.001
 # phase 19: the sharded solvers on 2 gloo ranks of the one card, held to
 # the single-rank solver at tests/test_distributed.py's sizes and
@@ -1287,51 +1297,88 @@ def _count_calls(module, name, log):
     return inner
 
 
-def _dp_run(dp, tracking, cfg, seqs, seeds, counters, profiled=0):
-    """init + DP_FRAMES - 1 steps of the dp step over the sequences
-    `seeds` as one batch; the last `profiled` steps under torch.profiler.
-    Returns a dict of the run."""
+def _event():
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def _dp_run(dp, tracking, frame_profile, cfg, seqs, seeds, counters,
+            capture, profiled=False):
+    """init + DP_FRAMES - 1 steps of the dp program (`DPProgram`) over the
+    sequences `seeds`, captured or eager: steps 1 to DP_WARM - 1 (the
+    captured program's first step captures it), then the window from
+    step DP_WARM to the end, timed (host clock with a synchronisation at
+    each end, and a CUDA event after each step: no synchronisation
+    inside) or, with `profiled`, each step under a torch.profiler trace of
+    its own (device activity; short traces): device ms and kernels a
+    step, each kernel's device ms a launch.  The captured run's steps run under
+    set_sync_debug_mode("error"): after `init`, only the capture's warm-up
+    and the window's ends may synchronise.  Returns a dict of the run."""
+    from torch.profiler import ProfilerActivity, profile
     S = len(seeds)
     stack = lambda k: torch.as_tensor(np.stack(
-        [np.asarray(getattr(seqs[s], k), np.float32) for s in seeds]))
-    imgs, depths = stack("images").cuda(), stack("depths").cuda()
-    stamps = stack("timestamps").cuda()
-    init_fn, step_fn = dp.build_dp_step(cfg, "cuda")
-    state, ts = dp.make_batch_states(cfg, S, "cuda")
-    calls = []
-    inner = [_count_calls(tracking, n, calls) for n in
-             ("track_with_motion_model", "track_reference_keyframe")]
+        [np.asarray(getattr(seqs[s], k), np.float32) for s in seeds])).cuda()
+    imgs, depths, stamps = stack("images"), stack("depths"), \
+        stack("timestamps")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     _zero(counters)
-    fast_cuda = counters[0]
-    try:
-        state, ts = init_fn(state, ts, imgs[:, 0], depths[:, 0])
-        ms, huds, prof = [], [], None
-        last = DP_FRAMES - profiled
-        for f in range(1, last):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fid = torch.full((S,), f, dtype=torch.int32, device="cuda")
-            state, ts, hud = step_fn(state, ts, imgs[:, f], depths[:, f],
-                                     fid, stamps[:, f])
-            huds.append(hud.cpu().numpy())
-            ms.append((time.perf_counter() - t0) * 1e3)
-        if profiled:
-            from torch.profiler import ProfilerActivity, profile
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for f in range(last, DP_FRAMES):
-                    fid = torch.full((S,), f, dtype=torch.int32,
-                                     device="cuda")
-                    state, ts, hud = step_fn(state, ts, imgs[:, f],
-                                             depths[:, f], fid, stamps[:, f])
-                    huds.append(hud.cpu().numpy())
+    tracking.ref_kf_fallbacks.reset()
+    prog = dp.DPProgram(cfg, S, "cuda", capture=capture)
+    prog.init(imgs[:, 0], depths[:, 0])
+    guard = _no_sync if capture else contextlib.nullcontext
+    step = lambda f: prog.step(imgs[:, f], depths[:, f], f, stamps[:, f])
+    with guard():
+        for f in range(1, DP_WARM):
+            step(f)
+    n = DP_FRAMES - DP_WARM
+    out = dict(prog=prog)
+    if profiled:
+        dev_us = n_kernels = 0
+        per = {k: [0.0, 0] for k in ("fast_nms_atlas_kernel",
+                                     "pose_lm_kernel")}
+        for f in range(DP_WARM, DP_FRAMES):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                with guard():
+                    step(f)
                 torch.cuda.synchronize()
-    finally:
-        tracking.track_with_motion_model, \
-            tracking.track_reference_keyframe = inner
-    return dict(state=state, ts=ts, ms=ms, huds=np.stack(huds, 1),
-                prof=prof, launches=_read(counters),
-                planes=fast_cuda.device_counts()[1], track_calls=len(calls))
+            for e in prof.key_averages():
+                if e.device_type != torch.autograd.DeviceType.CUDA:
+                    continue
+                us = frame_profile.device_time_us(e)
+                dev_us += us
+                n_kernels += e.count
+                for k, acc in per.items():
+                    if k in e.key:
+                        acc[0] += us
+                        acc[1] += e.count
+        out.update(dev_ms=dev_us / 1e3 / n, kernels=n_kernels / n,
+                   per_launch={k: a[0] / 1e3 / a[1] if a[1] else None
+                               for k, a in per.items()})
+    else:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host_ms = []
+        with guard():
+            evs = [_event()]
+            for f in range(DP_WARM, DP_FRAMES):
+                h0 = time.perf_counter()
+                step(f)
+                host_ms.append((time.perf_counter() - h0) * 1e3)
+                evs.append(_event())
+        torch.cuda.synchronize()
+        out.update(wall_ms=(time.perf_counter() - t0) * 1e3 / n,
+                   step_ms=[a.elapsed_time(b) for a, b in zip(evs, evs[1:])],
+                   host_ms=host_ms)
+    torch.cuda.synchronize()
+    out.update(state=prog.state, ts=prog.ts, huds=prog.huds(),
+               launches=_read(counters),
+               planes=counters[0].device_counts()[1],
+               fallbacks=int(tracking.ref_kf_fallbacks),
+               capture_s=prog.capture_s,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return out
 
 
 def _dp_ate(dp, evaluate, seqs, seeds, run):
@@ -1345,17 +1392,19 @@ def _dp_ate(dp, evaluate, seqs, seeds, run):
     return out
 
 
-def _dp_against_alone(dp, tracking, evaluate, build_atlas_extractor, cfg,
-                      seqs, big, ates, counters):
-    """Each sequence of the S = DP_COMPARE run against its own S = 1 run:
-    bit-identical trajectories, or else the descriptors that the batched
-    extraction (the BRIEF GEMM at another M) gives differently, equal
-    keyframe counts and an ATE within DP_ATE_MARGIN_M."""
+def _dp_against_alone(dp, tracking, frame_profile, evaluate,
+                      build_atlas_extractor, cfg, seqs, big, ates, counters):
+    """Each sequence of the S = DP_COMPARE run against its own S = 1 run
+    (both captured): bit-identical trajectories, or else the descriptors
+    that the batched extraction (the BRIEF GEMM at another M) gives
+    differently, equal keyframe counts and an ATE within
+    DP_ATE_MARGIN_M."""
     H, W = cfg.camera.height, cfg.camera.width
     ext_s = build_atlas_extractor(cfg.orb, H, W, "cuda", n_images=DP_COMPARE)
     ext_1 = build_atlas_extractor(cfg.orb, H, W, "cuda")
     for s in range(DP_COMPARE):
-        alone = _dp_run(dp, tracking, cfg, seqs, [s], counters)
+        alone = _dp_run(dp, tracking, frame_profile, cfg, seqs, [s],
+                        counters, True)
         same = torch.equal(big["ts"].traj[s], alone["ts"].traj[0])
         kf_b = int(big["state"].kf_valid[s].sum())
         kf_a = int(alone["state"].kf_valid[0].sum())
@@ -1384,6 +1433,7 @@ def _dp_against_alone(dp, tracking, evaluate, build_atlas_extractor, cfg,
             check(kf_b == kf_a and abs(ates[s] - ate_a) <= DP_ATE_MARGIN_M,
                   msg)
         print(msg, flush=True)
+        del alone
 
 
 def _dp_no_collective(dp, cfg, seqs):
@@ -1431,11 +1481,40 @@ def _dp_no_collective(dp, cfg, seqs):
     check(n_coll == 0, f"dp: the sharded step issued {n_coll} collectives")
 
 
-def phase_dp(dp, tracking, checkpoint, evaluate, fast_cuda,
+def _dp_differ(a, b):
+    """The state and track-state fields in which two dp runs differ."""
+    return [f"{k}.{f}" for k in ("state", "ts")
+            for f, x, y in zip(a[k]._fields, a[k], b[k])
+            if not torch.equal(x, y)]
+
+
+def _dp_line(S, tag, r, dev_ms, dev_src):
+    """One run's times; `dev_ms`, the device ms a step over the same steps
+    from the profiled run `dev_src` (captured and eager runs launch the
+    same kernels: equal launch counts)."""
+    q = statistics.quantiles(r["step_ms"], n=10)
+    return (f"dp S={S} {tag}: step ms median "
+            f"{statistics.median(r['step_ms']):.3f} p90 {q[8]:.3f} max "
+            f"{max(r['step_ms']):.3f} (CUDA events, steps {DP_WARM}-"
+            f"{DP_FRAMES - 1}), window wall {r['wall_ms']:.3f} ms a step "
+            f"(host clock), host ms a step call median "
+            f"{statistics.median(r['host_ms']):.3f}, total frames/s "
+            f"{S * 1e3 / r['wall_ms']:.2f}, device {dev_ms:.3f} ms a step "
+            f"({dev_src}), idle share {1 - dev_ms / r['wall_ms']:.3f}; peak "
+            f"{r['peak_gib']:.3f} GiB; launches fast_nms "
+            f"{r['launches']['fast_nms']} over {r['planes']} planes, pose_lm "
+            f"{r['launches']['pose_lm']}, reference-keyframe fallbacks "
+            f"{r['fallbacks']}")
+
+
+def phase_dp(dp, tracking, checkpoint, evaluate, fast_cuda, frame_profile,
              build_atlas_extractor, cfg, seqs, levels, counters, map_path):
     """Phase 18: S RGB-D sequences stepped together at full width, S in
-    DP_SIZES.  Saves the S = 1 run's map (sequence 0) to `map_path`.
-    Returns (launches of each run, by path; FAST rows at 8·S planes)."""
+    DP_SIZES, through the captured program and through the eager program
+    on the same inputs.  Saves the S = 1 run's
+    map (sequence 0) to `map_path`.  Returns (launches of each captured
+    run, by path; FAST rows at 8·S planes; the kernels' device ms a
+    launch under each captured run's replay)."""
     from orb_slam2_tpu_torch.map.state import MapState
     H, W = cfg.camera.height, cfg.camera.width
     # FAST on the S-image atlases of frame 0: bit-exact, timed, bounded
@@ -1455,63 +1534,92 @@ def phase_dp(dp, tracking, checkpoint, evaluate, fast_cuda,
             f"{r['bound_ms'] / r['device_ms']:.3f}"
         print(f"  dp FAST {r['name']}: the bound over the device time "
               f"{share}", flush=True)
-    launches, fps = {}, {}
+    launches, fps, replay = {}, {}, {}
     steps = DP_FRAMES - 1
     for S in DP_SIZES:
         if S == max(DP_SIZES):
             torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-        r = _dp_run(dp, tracking, cfg, seqs, list(range(S)), counters,
-                    DP_PROFILED if S == DP_COMPARE else 0)
-        launches[f"dp_s{S}"] = r["launches"]
+        run = lambda capture, profiled=False: _dp_run(
+            dp, tracking, frame_profile, cfg, seqs, list(range(S)), counters,
+            capture, profiled)
+        g = run(True)
+        launches[f"dp_s{S}"] = g["launches"]
+        # the same steps again, each profiled: device ms and kernels a
+        # step, the kernels' device ms a launch under replay
+        gp = run(True, True)
+        differ = _dp_differ(g, gp)
+        check(not differ and g["launches"] == gp["launches"],
+              f"dp S={S}: two captured runs differ ({differ})")
+        replay[S] = {k: gp["per_launch"][n] for k, n in (
+            ("fast_nms", "fast_nms_atlas_kernel"),
+            ("pose_lm", "pose_lm_kernel"))}
+        # eagerly on the same inputs: timed where S is in DP_EAGER; at the
+        # other S profiled instead, for the device ms (a replay of that
+        # graph records only part of its kernels)
+        e = run(False, S not in DP_EAGER)
+        dev_ms, dev_src = (gp["dev_ms"], "the captured run profiled") \
+            if S in DP_EAGER else (e["dev_ms"], "the eager run profiled, "
+                                   f"{e['kernels']:.1f} kernels a step")
         stepped = S * steps
-        fallbacks = r["track_calls"] - stepped
-        check(r["launches"]["fast_nms"] == DP_FRAMES and
-              r["planes"] == 8 * S * DP_FRAMES,
-              f"dp S={S}: {r['launches']['fast_nms']} FAST launches over "
-              f"{r['planes']} planes, not one over {8 * S} a step")
-        check(r["launches"]["pose_lm"] == 2 * stepped + fallbacks,
-              f"dp S={S}: pose_lm launches {r['launches']['pose_lm']}, not "
-              f"2 x {stepped} stepped frames + {fallbacks} "
-              "reference-keyframe fallbacks")
-        res = _dp_ate(dp, evaluate, seqs, range(S), r)
+        check(g["prog"].graph_replays == g["prog"].steps == steps,
+              f"dp S={S}: {g['prog'].graph_replays} graph replays for "
+              f"{g['prog'].steps} steps")
+        check(g["launches"]["fast_nms"] == DP_FRAMES and
+              g["planes"] == 8 * S * DP_FRAMES,
+              f"dp S={S}: {g['launches']['fast_nms']} FAST launches over "
+              f"{g['planes']} planes, not one over {8 * S} a step")
+        check(g["launches"]["pose_lm"] == 2 * stepped + g["fallbacks"],
+              f"dp S={S}: pose_lm launches {g['launches']['pose_lm']}, not "
+              f"2 x {stepped} stepped frames + {g['fallbacks']} "
+              "reference-keyframe fallbacks (device-counted)")
+        res = _dp_ate(dp, evaluate, seqs, range(S), g)
         for s, (n, ate) in enumerate(res):
             check(n >= DEPTH_TRACKED_MIN_FRAC * DP_FRAMES and
                   ate <= DEPTH_ATE_GATE_M["rgbd"],
                   f"dp S={S} sequence {s}: tracked {n}/{DP_FRAMES}, metric "
                   f"ATE {ate} m")
-        window = r["ms"][1:]
-        fps[S] = S * len(window) / (sum(window) / 1e3)
-        print(f"dp S={S}: step ms mean {statistics.mean(window):.2f} "
-              f"(median {statistics.median(window):.2f}, steps 2-"
-              f"{len(r['ms'])}), total frames/s {fps[S]:.2f} "
-              f"(x{fps[S] / fps[min(DP_SIZES)]:.3f} of S=1); tracked "
+        fps[S] = S * 1e3 / g["wall_ms"]
+        print(f"dp S={S}: total frames/s {fps[S]:.2f} (x"
+              f"{fps[S] / fps[min(DP_SIZES)]:.3f} of S=1; captured); tracked "
               f"{[n for n, _ in res]} of {DP_FRAMES}, metric ATE "
               f"{[round(a, 6) for _, a in res]} m, keyframes "
-              f"{[int(v) for v in r['state'].kf_valid.sum(1)]}; launches "
-              f"fast_nms {r['launches']['fast_nms']} over {r['planes']} "
-              f"planes, pose_lm {r['launches']['pose_lm']} = 2 x {stepped} "
-              f"stepped frames + {fallbacks} fallbacks", flush=True)
+              f"{[int(v) for v in g['state'].kf_valid.sum(1)]}; "
+              f"{g['prog'].graph_replays} graph replays for "
+              f"{g['prog'].steps} steps, capture {g['capture_s']:.3f} s; "
+              f"kernels a step {gp['kernels']:.1f}; under replay FAST "
+              f"{_dev(replay[S]['fast_nms'])} and pose LM "
+              f"{_dev(replay[S]['pose_lm'])} a launch (device; the "
+              "profiled run bit-identical to the timed one)", flush=True)
+        print(_dp_line(S, "captured", g, dev_ms, dev_src), flush=True)
+        if S in DP_EAGER:
+            print(_dp_line(S, "eager", e, dev_ms, dev_src), flush=True)
+        differ = _dp_differ(g, e)
+        same_hud = np.array_equal(g["huds"], e["huds"])
+        print(f"dp S={S}: captured against eager: state fields differing "
+              f"{differ or 'none'}, HUDs {'equal' if same_hud else 'differ'}",
+              flush=True)
+        check(not differ and same_hud,
+              f"dp S={S}: captured and eager runs differ ({differ}, HUDs "
+              f"equal {same_hud})")
+        check(g["launches"] == e["launches"] and
+              g["fallbacks"] == e["fallbacks"],
+              f"dp S={S}: device launch counts {g['launches']} captured, "
+              f"{e['launches']} eager")
+        del e
         if S == 1:
-            checkpoint.save_map(MapState(*(x[0] for x in r["state"])),
+            checkpoint.save_map(MapState(*(x[0] for x in g["state"])),
                                 map_path)
         if S == DP_COMPARE:
-            kernels = [e for e in r["prof"].key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA]
-            dev_ms = sum(float(getattr(e, "self_device_time_total", 0.0))
-                         for e in kernels) / 1e3 / DP_PROFILED
-            print(f"dp S={S}: device {dev_ms:.3f} ms a step over the last "
-                  f"{DP_PROFILED} steps (profiled), idle share "
-                  f"{1.0 - dev_ms / statistics.mean(window):.3f} against "
-                  "the timed steps' mean", flush=True)
-            _dp_against_alone(dp, tracking, evaluate, build_atlas_extractor,
-                              cfg, seqs, r, [a for _, a in res], counters)
-        del r
-    print(f"dp S={max(DP_SIZES)}: peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB",
-          flush=True)
+            _dp_against_alone(dp, tracking, frame_profile, evaluate,
+                              build_atlas_extractor, cfg, seqs, g,
+                              [a for _, a in res], counters)
+        if S == max(DP_SIZES):
+            print(f"dp S={S}: peak device memory {g['peak_gib']:.3f} GiB "
+                  f"(captured), capture {g['capture_s']:.3f} s (warm-up "
+                  "of every branch and capture)", flush=True)
+        del g, gp
     _dp_no_collective(dp, cfg, seqs)
-    return launches, fast_rows
+    return launches, fast_rows, replay
 
 
 def _centers(lie, T):
@@ -2001,8 +2109,8 @@ def main() -> int:
               "waited)", flush=True)
         with tempfile.TemporaryDirectory(dir=here, prefix="_smoke_") as tmp:
             map_path = os.path.join(tmp, "dp_seq0_map.npz")
-            dp_launches, dp_rows = phase_dp(
-                dp, tracking, checkpoint, evaluate, fast_cuda,
+            dp_launches, dp_rows, dp_replay = phase_dp(
+                dp, tracking, checkpoint, evaluate, fast_cuda, frame_profile,
                 build_atlas_extractor, rgbd_cfg, dp_seqs, main_levels,
                 counters, map_path)
             launches.update(dp_launches)
@@ -2046,6 +2154,10 @@ def main() -> int:
         "ms": frame_row["ms"],
         # the same launch replayed from a CUDA graph, as the session runs it
         "replay_ms": frame_row["replay_ms"],
+        # device ms a launch inside the dp program's replay, by S (8·S
+        # planes)
+        "dp_replay_device_ms": {S: r["fast_nms"]
+                                for S, r in dp_replay.items()},
         "plain_ms": frame_row["plain_ms"],
         "bound_ms": frame_row["bound_ms"],
         "bound_by": frame_row["bound_by"],
@@ -2059,6 +2171,8 @@ def main() -> int:
         "max_abs_err": max(r["err"] for r in pose_rows),
         "ms": main_row["ms"],
         "replay_ms": main_row["replay_ms"],
+        "dp_replay_device_ms": {S: r["pose_lm"]
+                                for S, r in dp_replay.items()},
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],

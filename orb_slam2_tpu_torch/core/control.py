@@ -88,6 +88,21 @@ def warmup():
         _warmup = old
 
 
+@contextlib.contextmanager
+def sync_allowed(device: torch.device):
+    """A region that may read the card (initialisation, a capture, a host
+    reaction): CUDA's sync debug mode is off inside it."""
+    if device.type != "cuda":
+        yield
+        return
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
 # ---------------------------------------------------------------------------
 # the helpers
 # ---------------------------------------------------------------------------
@@ -298,6 +313,26 @@ def capture(graph: torch.cuda.CUDAGraph, device: torch.device):
         if gc_was_on:
             gc.enable()
     graph._body_pool = (idx, body_pool)
+
+
+def capture_program(run: Callable[[bool], None],
+                    device: torch.device) -> torch.cuda.CUDAGraph:
+    """A program's CUDA graph: `run(True)` (the program on copies of its
+    buffers) runs eagerly with every branch warmed up (kernels loaded,
+    caches and counters made; the counts put back), then `run(False)`
+    (the program on its buffers, results written back in place) is
+    captured.  A failure raises: there is no eager fallback."""
+    with sync_allowed(device):
+        snap = snapshot()
+        with warmup():
+            run(True)
+        restore(snap)
+        body_streams(device)
+        torch.cuda.synchronize(device)
+        g = torch.cuda.CUDAGraph()
+        with capture(g, device):
+            run(False)
+    return g
 
 
 _deferred: List[torch.cuda.CUDAGraph] = []

@@ -1,14 +1,21 @@
 """Data-parallel multi-sequence SLAM: S independent RGB-D sequences, one
-map each, stepped in lock-step (port of orb_slam2_tpu/distributed/dp.py).
+map each, stepped in lock-step by ONE device program (port of
+orb_slam2_tpu/distributed/dp.py).
 
-The JAX package vmaps its per-frame program over a leading sequence axis.
-Here the states are the same NamedTuples with a leading [S] axis on every
-field; one step extracts the S images in one batched atlas program (one
-FAST launch over S·L planes), then tracks, decides on a keyframe, inserts
-it and runs one mapping stage for each sequence in turn, and stacks the
-results into new tensors (a field that no sequence changed keeps its
-tensor).  The per-sequence part reads the host, as the session's step
-does, so it is not yet one device program.
+The JAX package vmaps its per-frame program over a leading sequence axis
+and jits it.  Here the states are the same NamedTuples with a leading [S]
+axis on every field, allocated once; one step extracts the S images in one
+batched atlas program (one FAST launch over 8·S planes), then runs each
+sequence's body in turn on its own views of the stacked state: tracking,
+the keyframe decision, the insertion and one mapping stage, every decision
+a device branch (`core.control.cond` / `switch`, JAX's `lax.cond` /
+`lax.switch`), each result written back into the views.  Eagerly (on the
+CPU, and with `capture=False`) the step's only host reads are the
+helpers' marked predicate reads.  On the card `DPProgram` captures the
+step as one CUDA graph at its first step and replays it, so the host
+reads nothing from `init` to the end of the run: the S bodies are
+unrolled at the graph's top level (every sequence is active on every
+step), their branches IF nodes.
 
 The sequence axis needs no communication: `shard_batch` gives rank r of a
 process group its own block of sequences, `build_sharded_step` steps it
@@ -24,27 +31,34 @@ closing or relocalisation.
 
 from __future__ import annotations
 
+import time
+from typing import List, Optional, Tuple
+
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from orb_slam2_tpu_torch import resolve_device
 from orb_slam2_tpu_torch.config import RGBD, SLAMConfig
-from orb_slam2_tpu_torch.core import lie
+from orb_slam2_tpu_torch.core import control, lie
 from orb_slam2_tpu_torch.map.state import MapState, empty_map
 from orb_slam2_tpu_torch.pipeline import frame as frame_mod
 from orb_slam2_tpu_torch.pipeline import init as init_mod
 from orb_slam2_tpu_torch.pipeline import system, tracking
-from orb_slam2_tpu_torch.pipeline.tracking import (HUD_NEED_KF, TrackState,
-                                                   record_traj)
+from orb_slam2_tpu_torch.pipeline.tracking import (HUD_N_MP, HUD_NEED_KF,
+                                                   TrackState, record_traj)
 
 BA_CHUNKS = 3
 BA_ITERS = system.BA_ITERS      # 5: each chunk's LM iterations
 N_STAGES = 2 + BA_CHUNKS + 1
+HUD_LEN = HUD_N_MP + 1          # the track step's HUD: status .. n_mp
 
 # names of the communication events in a torch.profiler trace
 _COMM_PREFIXES = ("c10d::", "gloo:", "nccl", "record_param_comms")
 _COLLECTIVES = ("allreduce", "allgather", "reducescatter", "broadcast",
                 "alltoall", "send", "recv")
+
+Views = List[Tuple[MapState, TrackState]]
 
 
 def _take(tree, s: int):
@@ -52,44 +66,22 @@ def _take(tree, s: int):
     return type(tree)(*(x[s] for x in tree))
 
 
-def _restack(stacked, views, outs):
-    """New stacked NamedTuple from the per-sequence results `outs`; a field
-    that every sequence returned untouched (its input view) keeps the
-    stacked tensor."""
-    fields = []
-    for i, old in enumerate(stacked):
-        vals = [o[i] for o in outs]
-        if all(v is w[i] for v, w in zip(vals, views)):
-            fields.append(old)
-        else:
-            fields.append(torch.stack(vals))
-    return type(stacked)(*fields)
+def _sequence_views(state: MapState, ts: TrackState) -> Views:
+    """Each sequence's (MapState, TrackState) as views of the stacked
+    state: a body writes its results into them with `system.assign`,
+    which tells a field apart from its own by identity, so take them once
+    and keep them."""
+    return [(_take(state, s), _take(ts, s)) for s in range(ts.T.shape[0])]
 
 
-def _each_sequence(state, ts, fn):
-    """fn(s, state_s, ts_s) -> (state_s, ts_s, out) for every sequence s in
-    turn; returns the new stacked (state, ts) and the outs."""
-    views = [(_take(state, s), _take(ts, s)) for s in range(ts.T.shape[0])]
-    res = [fn(s, st, t) for s, (st, t) in enumerate(views)]
-    return (_restack(state, [v[0] for v in views], [r[0] for r in res]),
-            _restack(ts, [v[1] for v in views], [r[1] for r in res]),
-            [r[2] for r in res])
+def _bodies(cfg: SLAMConfig, dev: torch.device):
+    """(init_body, step_body) over per-sequence views, in place:
 
-
-def build_dp_step(cfg: SLAMConfig, device=None):
-    """Returns (init_fn, step_fn) over stacked states, on `device` (CUDA
-    unless the caller names one):
-
-        init_fn(state, ts, img [S, H, W], depth [S, H, W]) -> (state, ts)
-        step_fn(state, ts, img, depth, fid [S], t [S])
-            -> (state, ts, hud [S, 5])
-
-    The step is the session's per-frame program (tracking + the staged
-    LocalMapping) minus the host-driven rare events (loop closing,
-    relocalisation), which are not on the throughput path."""
+        init_body(views, img [S, H, W], depth [S, H, W])
+        step_body(views, img, depth, fid [S], t [S], hud [S, HUD_LEN])
+    """
     if cfg.sensor != RGBD:
         raise ValueError("the DP driver batches RGB-D sequences")
-    dev = resolve_device(device)
     track = tracking.build_track_step(cfg)
     frame_fns = {}
 
@@ -103,38 +95,200 @@ def build_dp_step(cfg: SLAMConfig, device=None):
             return type(one)(*(x[None] for x in one))
         return frame_fns[S](img, depth, fid, t)
 
-    def init_fn(state, ts, img, depth):
+    def insert(frame, cur_pids):
+        return lambda st, tt: system.insert_kf(st, tt, frame, cur_pids, cfg)
+
+    def stage(st, tt):
+        return system.mapping_stage(st, tt, cfg, N_STAGES)
+
+    def init_body(views: Views, img, depth):
         S = img.shape[0]
-        fr = frames(img, depth, torch.zeros(S, dtype=torch.int32),
-                    torch.zeros(S, dtype=torch.float32))
-
-        def one(s, st, t):
+        fr = frames(img, depth,
+                    torch.zeros(S, dtype=torch.int32, device=img.device),
+                    torch.zeros(S, dtype=torch.float32, device=img.device))
+        for s, (st, tt) in enumerate(views):
             frame = _take(fr, s)
-            if int(frame.n) >= cfg.tracking.stereo_init_min_kps:
-                st, t, _ = init_mod.stereo_initialize(st, t, frame, cfg)
-                t = record_traj(st, t, frame, True)
-            return st, t, None
 
-        state, ts, _ = _each_sequence(state, ts, one)
+            def do(a, b, frame=frame):
+                a, b, _ = init_mod.stereo_initialize(a, b, frame, cfg)
+                return a, record_traj(a, b, frame, True)
+
+            enough = frame.n >= cfg.tracking.stereo_init_min_kps
+            st1, tt1 = control.cond(enough, do, control.identity, (st, tt))
+            system.assign(st, st1)
+            system.assign(tt, tt1)
+
+    def step_body(views: Views, img, depth, fid, t, hud):
+        fr = frames(img, depth, fid, t)
+        for s, (st, tt) in enumerate(views):
+            frame = _take(fr, s)
+            st1, tt1, cur_pids, h = track(st, tt, frame)
+            busy_early = (tt1.map_kf >= 0) & (tt1.map_stage <= 1)
+            need = (h[HUD_NEED_KF] > 0) & ~busy_early
+            st1, tt1 = control.cond(need, insert(frame, cur_pids),
+                                    control.identity, (st1, tt1))
+            st1, tt1 = control.cond(tt1.map_kf >= 0, stage,
+                                    control.identity, (st1, tt1))
+            system.assign(st, st1)
+            system.assign(tt, tt1)
+            hud[s].copy_(h)
+
+    return init_body, step_body
+
+
+def build_dp_step(cfg: SLAMConfig, device=None):
+    """Returns (init_fn, step_fn), the eager step over stacked states, on
+    `device` (CUDA unless the caller names one):
+
+        init_fn(state, ts, img [S, H, W], depth [S, H, W]) -> (state, ts)
+        step_fn(state, ts, img, depth, fid [S], t [S])
+            -> (state, ts, hud [S, 5])
+
+    Both write their results into `state` and `ts` and return them (the
+    state is consumed, as a donated argument of a jitted function is).
+    The step is the session's per-frame program (tracking + the staged
+    LocalMapping) minus the host-driven rare events (loop closing,
+    relocalisation), which are not on the throughput path.  `DPProgram`
+    runs the same step captured."""
+    dev = resolve_device(device)
+    init_body, step_body = _bodies(cfg, dev)
+    last = {}
+
+    def views_of(state, ts):
+        if last.get("of", (None, None))[0] is not state or \
+                last["of"][1] is not ts:
+            last.update(of=(state, ts), views=_sequence_views(state, ts))
+        return last["views"]
+
+    def init_fn(state, ts, img, depth):
+        init_body(views_of(state, ts), img, depth)
         return state, ts
 
     def step_fn(state, ts, img, depth, fid, t):
-        fr = frames(img, depth, fid, t)
-
-        def one(s, st, tt):
-            frame = _take(fr, s)
-            st, tt, cur_pids, hud = track(st, tt, frame)
-            busy_early = int(tt.map_kf) >= 0 and int(tt.map_stage) <= 1
-            if bool(hud[HUD_NEED_KF]) and not busy_early:
-                st, tt = system.insert_kf(st, tt, frame, cur_pids, cfg)
-            if int(tt.map_kf) >= 0:
-                st, tt = system.mapping_stage(st, tt, cfg, N_STAGES)
-            return st, tt, hud
-
-        state, ts, huds = _each_sequence(state, ts, one)
-        return state, ts, torch.stack(huds)
+        hud = torch.empty((img.shape[0], HUD_LEN), dtype=torch.int32,
+                          device=img.device)
+        step_body(views_of(state, ts), img, depth, fid, t, hud)
+        return state, ts, hud
 
     return init_fn, step_fn
+
+
+class DPProgram:
+    """S RGB-D sequences stepped together as one program.  Usage:
+
+        prog = DPProgram(cfg, S)            # CUDA; device="cpu" to opt out
+        prog.init(img0, depth0)             # [S, H, W] each
+        for f in range(1, F):
+            prog.step(img[:, f], depth[:, f], f, t[:, f])
+        trajs = trajectories(prog.state, prog.ts, F)
+
+    It holds the input buffers, the stacked state (fixed storage; assigning
+    `prog.state` / `prog.ts` copies into it) and a ring of the steps' HUDs
+    (`huds()`, read once at the end).  `init` runs eagerly; on the card
+    the first `step` after it captures the step as one CUDA graph and
+    every step replays it, its inputs copied into the buffers first (from
+    the card or the host, asynchronously).  `capture=False` runs the step
+    eagerly instead (on the CPU always).  A failed capture raises: there
+    is no eager fallback."""
+
+    def __init__(self, cfg: SLAMConfig, S: int, device=None,
+                 capture: Optional[bool] = None):
+        self.cfg, self.S = cfg, S
+        self.device = dev = resolve_device(device)
+        cuda = dev.type == "cuda"
+        if capture and not cuda:
+            raise ValueError("a CUDA graph needs a CUDA device")
+        self.capture = cuda if capture is None else capture
+        self._init_body, self._step_body = _bodies(cfg, dev)
+        self._state, self._ts = make_batch_states(cfg, S, dev)
+        self._views = _sequence_views(self._state, self._ts)
+        H, W = cfg.camera.height, cfg.camera.width
+        self._img = torch.zeros((S, H, W), device=dev)
+        self._depth = torch.zeros((S, H, W), device=dev)
+        self._fid = torch.zeros(S, dtype=torch.int32, device=dev)
+        self._t = torch.zeros(S, device=dev)
+        self._hud = torch.zeros((S, HUD_LEN), dtype=torch.int32, device=dev)
+        self._huds = torch.zeros((cfg.cap.max_frames, S, HUD_LEN),
+                                 dtype=torch.int32, device=dev)
+        self.steps = 0
+        self.graph_replays = 0
+        self.capture_s = None        # seconds the warm-up and capture took
+        self._graph = None
+
+    @property
+    def state(self) -> MapState:
+        return self._state
+
+    @state.setter
+    def state(self, new: MapState):
+        system.assign(self._state, new)
+
+    @property
+    def ts(self) -> TrackState:
+        return self._ts
+
+    @ts.setter
+    def ts(self, new: TrackState):
+        system.assign(self._ts, new)
+
+    def __del__(self):
+        if control is not None and getattr(self, "_graph", None) is not None:
+            control.release(self._graph)
+
+    def _put(self, img, depth, fid, t):
+        for buf, x in ((self._img, img), (self._depth, depth),
+                       (self._fid, fid), (self._t, t)):
+            if isinstance(x, (int, float)):
+                buf.fill_(x)
+            else:
+                buf.copy_(torch.as_tensor(x), non_blocking=True)
+
+    def init(self, img, depth):
+        """Initialise each sequence on its first frame (eagerly, once)."""
+        self._put(img, depth, 0, 0.0)
+        with control.sync_allowed(self.device):
+            self._init_body(self._views, self._img, self._depth)
+
+    def step(self, img, depth, fid, t):
+        """One frame of every sequence: images and depth maps [S, H, W],
+        frame ids and timestamps [S] (or one number for all)."""
+        self._put(img, depth, fid, t)
+        if not self.capture:
+            self._step_body(self._views, self._img, self._depth, self._fid,
+                            self._t, self._hud)
+        else:
+            if self._graph is None:
+                self._graph = self._capture_program()
+            self._graph.replay()
+            self.graph_replays += 1
+        self._huds[self.steps % self._huds.shape[0]].copy_(self._hud)
+        self.steps += 1
+
+    def _capture_program(self) -> torch.cuda.CUDAGraph:
+        """The step captured on the fixed buffers, its results written
+        back in place (`control.capture_program`: warmed up on copies of
+        the state first; a failure raises)."""
+        def run(on_copies: bool):
+            views, hud = self._views, self._hud
+            if on_copies:
+                views = _sequence_views(system.clone(self._state),
+                                       system.clone(self._ts))
+                hud = hud.clone()
+            self._step_body(views, self._img, self._depth, self._fid,
+                            self._t, hud)
+
+        t0 = time.perf_counter()
+        g = control.capture_program(run, self.device)
+        self.capture_s = time.perf_counter() - t0
+        return g
+
+    def huds(self) -> np.ndarray:
+        """The HUDs of the last steps (up to `cfg.cap.max_frames`), in
+        step order: [steps, S, 5] (a host read)."""
+        R = self._huds.shape[0]
+        n = min(self.steps, R)
+        order = [(self.steps - n + i) % R for i in range(n)]
+        return self._huds[order].cpu().numpy()
 
 
 def make_batch_states(cfg: SLAMConfig, S: int, device=None):
@@ -164,15 +318,17 @@ def trajectories(state, ts, n_frames: int):
 
 def shard_batch(tree, group):
     """Rank r of `group` (n ranks) keeps sequences [r·S/n, (r+1)·S/n) of a
-    stacked tree (tensors, NamedTuples, tuples, lists), CUDA tensors moved
-    to the rank's current card."""
+    stacked tree (tensors, NamedTuples, tuples, lists) in storage of its
+    own (the dp step writes its state in place), CUDA tensors on the
+    rank's current card."""
     n, r = dist.get_world_size(group), dist.get_rank(group)
 
     def shard(x):
         if torch.is_tensor(x):
             S = x.shape[0]
             x = x[r * S // n:(r + 1) * S // n]
-            return x.to(torch.cuda.current_device()) if x.is_cuda else x
+            return x.to(torch.cuda.current_device() if x.is_cuda
+                        else x.device, copy=True)
         if isinstance(x, tuple) and hasattr(x, "_fields"):
             return type(x)(*map(shard, x))
         return type(x)(map(shard, x))
@@ -182,9 +338,11 @@ def shard_batch(tree, group):
 
 def build_sharded_step(cfg: SLAMConfig, group, device=None):
     """The rank's (init, step) over its shard of the sequences
-    (`shard_batch(..., group)`): `build_dp_step` on the rank's device.  The
-    sequence axis is embarrassingly parallel, so the step issues no
-    collective (`collective_ops_in_trace` of a profiled step is 0)."""
+    (`shard_batch(..., group)`): `build_dp_step` on the rank's device (a
+    rank that wants the captured program makes a `DPProgram` over its
+    shard and assigns the shard to its state).  The sequence axis is
+    embarrassingly parallel, so the step issues no collective
+    (`collective_ops_in_trace` of a profiled step is 0)."""
     if dist.get_rank(group) < 0:
         raise ValueError("this process is not in the group")
     return build_dp_step(cfg, device)

@@ -40,7 +40,6 @@ BoW, relocalisation or loop closing.
 
 from __future__ import annotations
 
-import contextlib
 import os
 import time
 from collections import deque
@@ -224,7 +223,8 @@ def empty_frames(cfg: SLAMConfig, n: int, device) -> Frame:
                  frame_id=z(dt=torch.int32), timestamp=z())
 
 
-def _clone(t: NamedTuple):
+def clone(t: NamedTuple):
+    """A copy of every field of `t`."""
     return type(t)(*[x.clone() for x in t])
 
 
@@ -384,20 +384,11 @@ class SLAM:
             self._drain(self.hud_lag)
         self.timings.append(time.perf_counter() - t0)
 
-    @contextlib.contextmanager
     def host_reaction(self):
         """A host reaction between frames (initialisation, reset,
         relocalisation, loop closing, the global BA, flush): it may read
         the device, so CUDA's sync debug mode is off inside it."""
-        if self.device.type != "cuda":
-            yield
-            return
-        mode = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode(0)
-        try:
-            yield
-        finally:
-            torch.cuda.set_sync_debug_mode(mode)
+        return control.sync_allowed(self.device)
 
     # ------------------------------------------------------------------
     # the program: B step bodies over the fixed buffers
@@ -445,26 +436,20 @@ class SLAM:
         self.graph_replays += 1
 
     def _capture_program(self, loc_only: bool) -> torch.cuda.CUDAGraph:
-        """Warm every branch up eagerly on copies (kernels loaded, caches
-        and counters made; the counts put back), then capture the program
-        on the session's buffers, its state written back in place.  A
-        failure raises: there is no eager fallback."""
-        with self.host_reaction():
-            snap = control.snapshot()
-            with control.warmup():
-                self._program(loc_only, _clone(self._state),
-                              _clone(self._ts), _clone(self._ring),
-                              self._hud.clone())
-            control.restore(snap)
-            control.body_streams(self.device)
-            torch.cuda.synchronize(self.device)
-            g = torch.cuda.CUDAGraph()
-            with control.capture(g, self.device):
-                st, tt = self._program(loc_only, self._state, self._ts,
-                                       self._ring, self._hud)
-                assign(self._state, st)
-                assign(self._ts, tt)
-        return g
+        """The program captured on the session's buffers, its state
+        written back in place (`control.capture_program`: warmed up on
+        copies first; a failure raises)."""
+        def run(on_copies: bool):
+            if on_copies:
+                self._program(loc_only, clone(self._state), clone(self._ts),
+                              clone(self._ring), self._hud.clone())
+                return
+            st, tt = self._program(loc_only, self._state, self._ts,
+                                   self._ring, self._hud)
+            assign(self._state, st)
+            assign(self._ts, tt)
+
+        return control.capture_program(run, self.device)
 
     def _dispatch_batch(self):
         """Run the buffered frames as one program (JAX's scanned
@@ -551,7 +536,7 @@ class SLAM:
                         self._reloc_pending is None:
                     with self.host_reaction():
                         # a copy: the ring slot is reused R frames later
-                        frame = _clone(self._ring_frame(slot))
+                        frame = clone(self._ring_frame(slot))
                         self._reloc_pending = (fid, self._run_reloc(frame),
                                                frame)
         self._check_reloc(force=(keep == 0))

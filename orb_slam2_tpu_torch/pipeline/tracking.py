@@ -48,6 +48,8 @@ need_close_frames = control.Count()  # keyframe decisions with too few close
 #                                      points tracked
 vo_candidates = control.Count()      # VO points offered to the motion model
 vo_inliers = control.Count()         # VO points kept as pose-LM inliers
+ref_kf_fallbacks = control.Count()   # reference-keyframe tracks after the
+#                                      motion model failed
 
 
 class TrackState(NamedTuple):
@@ -433,8 +435,9 @@ def build_track_step(cfg: SLAMConfig):
             return pids.to(torch.int32), opt.T, ok
 
         pids, T, ok1 = control.cond(ts.has_velocity, do_motion, do_ref)
-        pids, T, ok1 = control.cond(ts.has_velocity & ~ok1, do_ref,
-                                    lambda: (pids, T, ok1))
+        fallback = ts.has_velocity & ~ok1
+        ref_kf_fallbacks.add(fallback)
+        pids, T, ok1 = control.cond(fallback, do_ref, lambda: (pids, T, ok1))
 
         # --- phase 2: local map ---
         after_reloc = (frame.frame_id - ts.last_reloc_frame_id) < \

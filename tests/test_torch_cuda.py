@@ -7,8 +7,10 @@ the same extractor with the plain version on the card, and the mono and
 two-image extractors and the stereo frame function, card against CPU —
 and the captured step: the kernels' device launch counts (graph replays
 included), `core.control`'s IF nodes against the eager helpers, and a
-session's replayed frames against its eager frames, bit for bit, with no
-synchronisation under `set_sync_debug_mode("error")`.  They skip without
+session's replayed frames against its eager frames, and the dp program's
+replayed steps (`distributed/dp.py` `DPProgram`) against its eager steps,
+bit for bit, with no synchronisation under
+`set_sync_debug_mode("error")`.  They skip without
 a card.  This file imports neither JAX nor the JAX
 package, so it also runs where only PyTorch is installed:
 
@@ -396,6 +398,58 @@ def test_replayed_frames_equal_eager_frames():
         torch.cuda.set_sync_debug_mode(0)
     e = _mono_run(False)
     assert g.graph_replays == g.frames_stepped >= 10
+    for a, b in ((g.state, e.state), (g.ts, e.ts)):
+        for f, x, y in zip(a._fields, a, b):
+            assert torch.equal(x, y), f
+
+
+def _dp_run(capture: bool, S: int = 2, n: int = 8):
+    """`DPProgram` over S RGB-D sequences of tests/test_torch_dp.py's small
+    configuration, init and n - 1 steps; the steps under
+    set_sync_debug_mode("error") when captured (the capture is the first
+    step's)."""
+    from orb_slam2_tpu_torch.distributed import dp
+    from orb_slam2_tpu_torch.io import synthetic
+    cam = config.CameraConfig(fx=200.0, fy=200.0, cx=160.0, cy=120.0,
+                              width=320, height=240, fps=30.0, bf=16.0,
+                              th_depth=35.0)
+    cfg = config.SLAMConfig(
+        sensor=config.RGBD, camera=cam,
+        orb=config.ORBConfig(n_features=500, max_keypoints=512),
+        cap=config.Capacity(max_keyframes=96, max_points=6144,
+                            max_obs_per_kf=512, max_frames=512,
+                            local_ba_points=2048))
+    seqs = [synthetic.generate(cam, n_frames=n, n_points=300,
+                               trajectory="xyz", seed=s) for s in range(S)]
+    dev = lambda k: torch.as_tensor(np.stack(
+        [np.asarray(getattr(q, k), np.float32) for q in seqs])).cuda()
+    img, depth, t = dev("images"), dev("depths"), dev("timestamps")
+    prog = dp.DPProgram(cfg, S, "cuda", capture=capture)
+    prog.init(img[:, 0], depth[:, 0])
+    try:
+        if capture:
+            torch.cuda.set_sync_debug_mode("error")
+        for f in range(1, n):
+            prog.step(img[:, f], depth[:, f], f, t[:, f])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return prog
+
+
+@pytest.mark.cuda
+def test_dp_replayed_steps_equal_eager_steps():
+    """Two RGB-D sequences stepped together over 7 steps (an insertion
+    and its stages): the captured program, one graph replay a step and
+    no synchronisation after `init`, gives the eager program's state and
+    HUDs bit for bit."""
+    _card()
+    g = _dp_run(True)
+    e = _dp_run(False)
+    assert g.graph_replays == g.steps == 7 and e.graph_replays == 0
+    assert g.capture_s is not None
+    np.testing.assert_array_equal(g.huds(), e.huds())
+    assert int(g.state.kf_valid.sum()) >= 4
     for a, b in ((g.state, e.state), (g.ts, e.ts)):
         for f, x, y in zip(a._fields, a, b):
             assert torch.equal(x, y), f

@@ -11,6 +11,14 @@ two sequences as one S = 2 batch.  JAX compiles in a background thread
 (XLA's compiler releases the GIL) while the port's runs go ahead, so the
 tests that need JAX's results come last.
 
+The rewritten step makes every decision a device branch and writes into
+the stacked state in place: the S = 2 run goes under test_torch_graph's
+`HostReads` (0 reads but the helpers' marked predicate reads, over
+insertions and every stage but the cull; its last step, in warm-up mode,
+runs every branch, the cull's too), every stacked field keeps its
+storage, and each sequence alone runs through `DPProgram` (eager on the
+CPU, no warm-up step), so the batch is also held to the program.
+
 Tolerances: the tracking status, the keyframe decision and the keyframe
 count exactly, inlier and map-point counts within 2% + 2, as in
 tests/test_torch_stereo.py's fused-step checks.  Trajectory rows within
@@ -21,6 +29,7 @@ frame 6 of seed 1) turns that round-off into 2.6e-4 on both JAX
 variants (vmapped and per-sequence agree to 2.5e-6).
 """
 
+import contextlib
 import datetime
 from concurrent.futures import ThreadPoolExecutor
 
@@ -43,14 +52,17 @@ from orb_slam2_tpu_torch import convert
 from orb_slam2_tpu_torch.distributed import dp as tdp
 from orb_slam2_tpu_torch.distributed.launch import free_port
 from orb_slam2_tpu_torch.map.state import empty_map as tempty_map
+from orb_slam2_tpu_torch.core import control
 from orb_slam2_tpu_torch.pipeline import frame as tframe
 from orb_slam2_tpu_torch.pipeline.tracking import (HUD_N_INLIERS, HUD_N_KF,
                                                    HUD_N_MP, HUD_NEED_KF,
                                                    HUD_STATUS,
                                                    empty_track_state)
+from test_torch_graph import HostReads
 
 S = 2
 N_FRAMES = 8
+N_STAGES_RUN = tdp.N_STAGES - 1     # every stage but the cull
 TRAJ_TOL = 1e-3
 
 
@@ -88,26 +100,49 @@ def batch():
             f32([q.timestamps for q in seqs]))
 
 
-def _port_run(batch, seqs):
+def _port_run(batch, seqs, record=None):
     """The port's dp step over the sequences `seqs` as one batch: (state,
-    ts, hud [S, F-1, 5])."""
+    ts, hud [S, F-1, 5]).  With a dict `record`, the steps run under
+    `HostReads` (record["reads"]), the last one in warm-up mode (every
+    branch run, the chosen one's result returned), and record the stage
+    each step ran (an insertion's step runs stage 0) and the stacked
+    fields' storage before and after."""
     imgs, depths, ts_ = (torch.from_numpy(a[seqs]) for a in batch)
     init_fn, step_fn = tdp.build_dp_step(small_rgbd_cfg(tconfig), "cpu")
     state, ts = tdp.make_batch_states(small_rgbd_cfg(tconfig), len(seqs),
                                       "cpu")
+    ptrs = [x.data_ptr() for x in state + ts]
     state, ts = init_fn(state, ts, imgs[:, 0], depths[:, 0])
     huds = []
     for f in range(1, N_FRAMES):
         fid = torch.full((len(seqs),), f, dtype=torch.int32)
-        state, ts, hud = step_fn(state, ts, imgs[:, f], depths[:, f], fid,
-                                 ts_[:, f])
+        if record is None:
+            state, ts, hud = step_fn(state, ts, imgs[:, f], depths[:, f],
+                                     fid, ts_[:, f])
+        else:
+            kf0 = state.next_kf.clone()
+            stage = torch.where(ts.map_kf >= 0, ts.map_stage, -1)
+            warm = control.warmup() if f == N_FRAMES - 1 else \
+                contextlib.nullcontext()
+            with record["reads"], warm:
+                state, ts, hud = step_fn(state, ts, imgs[:, f],
+                                         depths[:, f], fid, ts_[:, f])
+            stage = torch.where(state.next_kf > kf0, 0, stage)
+            record["stages"].update(int(x) for x in stage)
         huds.append(hud)
+    if record is not None:
+        record["ptrs"] = (ptrs, [x.data_ptr() for x in state + ts])
     return state, ts, torch.stack(huds, 1).numpy()
 
 
 @pytest.fixture(scope="module")
-def port(batch):
-    return _port_run(batch, [0, 1])
+def port_record():
+    return dict(reads=HostReads(), stages=set())
+
+
+@pytest.fixture(scope="module")
+def port(batch, port_record):
+    return _port_run(batch, [0, 1], port_record)
 
 
 def _compile_jax():
@@ -168,13 +203,37 @@ def test_rgbd_frame_fn_over_s_images_equals_one_image(batch):
 @pytest.mark.parametrize("s", range(S))
 def test_s2_batch_equals_each_sequence_alone(batch, port, s):
     """The S = 2 batch gives sequence s exactly what it gets alone
-    (S = 1): no write-back of one sequence reaches another."""
+    (S = 1, through `DPProgram`, eager on the CPU): no write-back of one
+    sequence reaches another."""
     tst, tts, thud = port
-    ost, ots, ohud = _port_run(batch, [s])
+    imgs, depths, ts_ = (torch.from_numpy(a[[s]]) for a in batch)
+    prog = tdp.DPProgram(small_rgbd_cfg(tconfig), 1, "cpu")
+    assert not prog.capture
+    prog.init(imgs[:, 0], depths[:, 0])
+    for f in range(1, N_FRAMES):
+        prog.step(imgs[:, f], depths[:, f], f, ts_[:, f])
+    assert prog.steps == N_FRAMES - 1 and prog.graph_replays == 0
+    ost, ots, ohud = prog.state, prog.ts, prog.huds().transpose(1, 0, 2)
     np.testing.assert_array_equal(thud[s], ohud[0])
     for a, b in ((tst, ost), (tts, ots)):
         for f, x, y in zip(a._fields, a, b):
             assert torch.equal(x[s], y[0]), f
+
+
+def test_dp_step_makes_no_host_read(port, port_record):
+    """The S = 2 run's steps (insertions, every stage but the cull, which
+    the second keyframe aborts; the last step in warm-up mode, which runs
+    every branch: the motion model's fallback, each stage, the keyframe
+    cull) make no host read but the helpers' marked predicate reads, and
+    write into the stacked state's own storage.  (The warm-up step's
+    results are the step's: the batch equals each sequence run alone
+    without it, test_s2_batch_equals_each_sequence_alone.)"""
+    rec = port_record
+    assert set(range(N_STAGES_RUN)) <= rec["stages"], rec["stages"]
+    assert rec["reads"].n == 0, rec["reads"].where
+    before, after = rec["ptrs"]
+    assert before == after
+    assert (port[2][:, :, HUD_STATUS] == 2).all()
 
 
 def test_dp_requires_rgbd():
