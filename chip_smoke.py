@@ -104,14 +104,22 @@ each of which fails the run when it fails:
      64-plane atlases of frame 0; every S through the captured program
      (`DPProgram`: one graph replay a step, no synchronisation after
      `init` under `set_sync_debug_mode("error")`) and through the eager
-     program on the same inputs (timed at S = 1, 2, 4): bit-identical
-     states and HUDs and equal device launch counts; each run one FAST
-     launch a step over 8·S planes, every pose LM through its kernel (2 a
-     stepped frame, plus the device-counted reference-keyframe fallbacks),
-     every sequence >= 90% tracked with metric ATE <= 0.02 m; the S = 4
-     run's sequences against their own S = 1 runs (bit-identical, or the
-     same keyframe count and ATE within 1 mm, with the descriptors that
-     differ counted); step ms (CUDA events, median and p90), window wall
+     program on the same inputs (timed at S = 1, 2, 4, and at every S
+     profiled by phase: device ms and kernels a step of extraction,
+     tracking, insertion, stage and the rest, `dp_profile.py`):
+     bit-identical states and HUDs and equal device launch counts; each
+     run one FAST launch a step over 8·S planes, every pose LM through its
+     kernel, the S sequences' tracking batched (one local-map solve a
+     step, one motion-model and one reference-keyframe solve in the steps
+     where some sequence took them: 2 a step plus the steps that also took
+     the reference keyframe, whatever S is), every sequence >= 90%
+     tracked with metric ATE <= 0.02 m; the S = 4 run's sequences against
+     their own S = 1 runs (bit-identical, or the same keyframe count and
+     ATE within 1 mm, with the descriptors that differ counted); one
+     batched track call at S = 4 on the inputs recorded at a step, and on
+     a mixed batch made from them (no velocity, a failing motion model),
+     against 4 single calls, bit for bit; step ms (CUDA events, median
+     and p90), window wall
      ms, host ms a step call, total frames/s and its ratio to S = 1,
      device ms a step and idle share (profiled over the same steps), FAST
      and pose-LM device ms a launch under replay, peak memory and capture
@@ -239,8 +247,10 @@ AR_FRAMES = 60
 # step captures), and eagerly on the same inputs, held bit-identical: the
 # eager runs at DP_EAGER's sizes timed, at the others profiled;
 # DP_COMPARE's sequences are held against their own S = 1 runs
-DP_FRAMES, DP_SIZES, DP_COMPARE = 48, (1, 2, 4, 8), 4
-DP_EAGER, DP_WARM = (1, 2, 4), 8
+# (DP_SIZES, DP_FRAMES, DP_WARM are `dp_profile`'s SIZES, FRAMES, WARM,
+# set in main once the package is imported)
+DP_SIZES = DP_FRAMES = DP_WARM = None
+DP_COMPARE, DP_EAGER = 4, (1, 2, 4)
 DP_ATE_MARGIN_M = 0.001
 # phase 19: the sharded solvers on 2 gloo ranks of the one card, held to
 # the single-rank solver at tests/test_distributed.py's sizes and
@@ -1297,34 +1307,30 @@ def _count_calls(module, name, log):
     return inner
 
 
-def _event():
-    ev = torch.cuda.Event(enable_timing=True)
-    ev.record()
-    return ev
-
-
 def _dp_run(dp, tracking, frame_profile, cfg, seqs, seeds, counters,
             capture, profiled=False):
     """init + DP_FRAMES - 1 steps of the dp program (`DPProgram`) over the
     sequences `seeds`, captured or eager: steps 1 to DP_WARM - 1 (the
     captured program's first step captures it), then the window from
-    step DP_WARM to the end, timed (host clock with a synchronisation at
-    each end, and a CUDA event after each step: no synchronisation
-    inside) or, with `profiled`, each step under a torch.profiler trace of
-    its own (device activity; short traces): device ms and kernels a
-    step, each kernel's device ms a launch.  The captured run's steps run under
+    step DP_WARM to the end, timed (`frame_profile.time_steps`) or, with
+    `profiled`, each step under a torch.profiler trace of its own (device
+    activity; short traces): device ms and kernels a step, each kernel's
+    device ms a launch.  The captured run's steps run under
     set_sync_debug_mode("error"): after `init`, only the capture's warm-up
-    and the window's ends may synchronise.  Returns a dict of the run."""
+    and the window's ends may synchronise.  Returns a dict of the run.
+
+    The earlier phases' torch.profiler traces leave CUPTI attached to the
+    process, and then each graph launch blocks the host until the graph
+    has nearly run: the captured times here are the program's in that
+    state.  `dp_profile.py` times it in a fresh process (tearing CUPTI
+    down instead, TEARDOWN_CUPTI=1, makes the later traces lose events)."""
     from torch.profiler import ProfilerActivity, profile
     S = len(seeds)
-    stack = lambda k: torch.as_tensor(np.stack(
-        [np.asarray(getattr(seqs[s], k), np.float32) for s in seeds])).cuda()
-    imgs, depths, stamps = stack("images"), stack("depths"), \
-        stack("timestamps")
+    imgs, depths, stamps = _dp_inputs(seqs, seeds)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero(counters)
-    tracking.ref_kf_fallbacks.reset()
+    _zero_track(tracking)
     prog = dp.DPProgram(cfg, S, "cuda", capture=capture)
     prog.init(imgs[:, 0], depths[:, 0])
     guard = _no_sync if capture else contextlib.nullcontext
@@ -1336,8 +1342,9 @@ def _dp_run(dp, tracking, frame_profile, cfg, seqs, seeds, counters,
     out = dict(prog=prog)
     if profiled:
         dev_us = n_kernels = 0
-        per = {k: [0.0, 0] for k in ("fast_nms_atlas_kernel",
-                                     "pose_lm_kernel")}
+        per = {"fast_nms": ["fast_nms_atlas_kernel", 0.0, 0],
+               "pose_lm": ["pose_lm_kernel", 0.0, 0]}
+        before = _read(counters)
         for f in range(DP_WARM, DP_FRAMES):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 with guard():
@@ -1349,36 +1356,157 @@ def _dp_run(dp, tracking, frame_profile, cfg, seqs, seeds, counters,
                 us = frame_profile.device_time_us(e)
                 dev_us += us
                 n_kernels += e.count
-                for k, acc in per.items():
-                    if k in e.key:
-                        acc[0] += us
-                        acc[1] += e.count
+                for acc in per.values():
+                    if acc[0] in e.key:
+                        acc[1] += us
+                        acc[2] += e.count
+        ran = {k: v - before[k] for k, v in _read(counters).items()}
+        # a kernel's device ms a launch only where the traces recorded
+        # every launch the device counted in the window (a replay of a
+        # large graph drops some)
         out.update(dev_ms=dev_us / 1e3 / n, kernels=n_kernels / n,
-                   per_launch={k: a[0] / 1e3 / a[1] if a[1] else None
-                               for k, a in per.items()})
+                   per_launch={k: a[1] / 1e3 / a[2] if a[2] == ran[k]
+                               else None for k, a in per.items()},
+                   traced={k: (a[2], ran[k]) for k, a in per.items()})
     else:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        host_ms = []
-        with guard():
-            evs = [_event()]
-            for f in range(DP_WARM, DP_FRAMES):
-                h0 = time.perf_counter()
-                step(f)
-                host_ms.append((time.perf_counter() - h0) * 1e3)
-                evs.append(_event())
-        torch.cuda.synchronize()
-        out.update(wall_ms=(time.perf_counter() - t0) * 1e3 / n,
-                   step_ms=[a.elapsed_time(b) for a, b in zip(evs, evs[1:])],
-                   host_ms=host_ms)
+        out.update(frame_profile.time_steps(step, range(DP_WARM, DP_FRAMES),
+                                            guard))
     torch.cuda.synchronize()
     out.update(state=prog.state, ts=prog.ts, huds=prog.huds(),
                launches=_read(counters),
                planes=counters[0].device_counts()[1],
-               fallbacks=int(tracking.ref_kf_fallbacks),
                capture_s=prog.capture_s,
-               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               **_read_track(tracking))
     return out
+
+
+def _dp_inputs(seqs, seeds):
+    """Images, depth maps [S, F, H, W] and timestamps [S, F] of the
+    sequences `seeds`, on the card."""
+    stack = lambda k: torch.as_tensor(np.stack(
+        [np.asarray(getattr(seqs[s], k), np.float32) for s in seeds])).cuda()
+    return stack("images"), stack("depths"), stack("timestamps")
+
+
+# the track step's device counts: reference-keyframe fallbacks (one a
+# sequence), and the steps that ran the motion model and the reference-
+# keyframe match (one batched call for all sequences each)
+_TRACK_COUNTS = {"fallbacks": "ref_kf_fallbacks",
+                 "motion_steps": "motion_model_steps",
+                 "ref_steps": "ref_kf_steps",
+                 "need_close": "need_close_frames"}
+
+
+def _zero_track(tracking):
+    for name in _TRACK_COUNTS.values():
+        getattr(tracking, name).reset()
+
+
+def _read_track(tracking):
+    return {k: int(getattr(tracking, name))
+            for k, name in _TRACK_COUNTS.items()}
+
+
+def _dp_split(dp, dp_profile, tracking, cfg, seqs, S, counters):
+    """The eager program over the first S sequences, each step of the
+    window profiled and its device time and kernels charged by phase
+    (`dp_profile.split_run`: extract, track, insert, stage, other); with
+    its state, HUDs and device counts."""
+    _zero(counters)
+    _zero_track(tracking)
+    r = dp_profile.split_run(dp, cfg, *_dp_inputs(seqs, range(S)), DP_WARM)
+    torch.cuda.synchronize()
+    prog = r.pop("prog")
+    r.update(state=prog.state, ts=prog.ts, huds=prog.huds(),
+             launches=_read(counters), **_read_track(tracking))
+    return r
+
+
+def _dp_track_batch(dp, tracking, pose_lm_cuda, cfg, seqs, S, at):
+    """One batched track call over S sequences against S single-sequence
+    calls, on the inputs the eager dp program's track took at step `at`
+    (recorded), and on a mixed batch made from them (sequence 1 without a
+    velocity: the reference keyframe; sequence 2 with a velocity that
+    turns the camera round: its motion model fails, the fallback): states,
+    track states, point ids and HUDs bit-identical, the same
+    per-sequence counts, and one pose-LM launch for each batched solve."""
+    clone = lambda t: type(t)(*(x.clone() for x in t))
+    rec, calls = [], [0]
+    build = tracking.build_track_step
+
+    def recording(c):
+        track = build(c)
+
+        def wrapped(state, ts, frame, *args, **kwargs):
+            calls[0] += 1
+            if calls[0] == at:
+                rec.append(tuple(clone(x) for x in (state, ts, frame)))
+            return track(state, ts, frame, *args, **kwargs)
+        return wrapped
+
+    imgs, depths, stamps = _dp_inputs(seqs, range(S))
+    tracking.build_track_step = recording
+    try:
+        prog = dp.DPProgram(cfg, S, "cuda", capture=False)
+        prog.init(imgs[:, 0], depths[:, 0])
+        for f in range(1, at + 1):
+            prog.step(imgs[:, f], depths[:, f], f, stamps[:, f])
+    finally:
+        tracking.build_track_step = build
+    del prog
+    state, ts, frame = rec[0]
+    track = build(cfg)
+    vel, has = ts.velocity.clone(), ts.has_velocity.clone()
+    vel[2].zero_()
+    vel[2, 2].fill_(1.0)
+    has[1].fill_(False)
+    one = lambda t, s: type(t)(*(x[s:s + 1] for x in t))
+    for name, tt in (("recorded", ts),
+                     ("mixed", ts._replace(velocity=vel, has_velocity=has))):
+        _zero_track(tracking)
+        l0 = pose_lm_cuda.device_launches()
+        many = track(state, tt, frame)
+        l_many = pose_lm_cuda.device_launches() - l0
+        c_many = _read_track(tracking)
+        _zero_track(tracking)
+        l0 = pose_lm_cuda.device_launches()
+        ones = [track(one(state, s), one(tt, s), one(frame, s))
+                for s in range(S)]
+        l_ones = pose_lm_cuda.device_launches() - l0
+        c_ones = _read_track(tracking)
+        differ = []
+        for s in range(S):
+            for part, a, b in zip(("state", "ts", "cur_pids", "hud"), many,
+                                  ones[s]):
+                pairs = zip(a._fields, a, b) if isinstance(a, tuple) else \
+                    [("", a, b)]
+                differ += [f"{s}:{part}.{f}" for f, x, y in pairs
+                           if not torch.equal(x[s], y[0])]
+        print(f"dp track over S={S}, the inputs of step {at} ({name}; has "
+              f"velocity {tt.has_velocity.tolist()}): one batched call "
+              f"against {S} single calls: fields differing "
+              f"{differ or 'none'}; statuses "
+              f"{many[3][:, 0].tolist()}; pose-LM launches {l_many} against "
+              f"{l_ones}; counts batched {c_many}, single {c_ones}",
+              flush=True)
+        check(not differ, f"dp: the batched track differs from the single "
+              f"calls ({name}: {differ[:8]})")
+        check(all(c_many[k] == c_ones[k] for k in ("fallbacks",
+                                                  "need_close")),
+              f"dp: per-sequence counts of the batched track {c_many} "
+              f"against the single calls' {c_ones} ({name})")
+        check(l_many == 1 + c_many["motion_steps"] + c_many["ref_steps"],
+              f"dp: {l_many} pose-LM launches for one batched track call "
+              f"({name}, counts {c_many})")
+        if name == "mixed":
+            check(c_many["fallbacks"] >= 1 and c_many["motion_steps"] == 1
+                  and c_many["ref_steps"] == 1,
+                  f"dp: the mixed batch took no fallback ({c_many})")
+
+
+def _read_track_of(r):
+    return {k: r[k] for k in _TRACK_COUNTS}
 
 
 def _dp_ate(dp, evaluate, seqs, seeds, run):
@@ -1503,15 +1631,19 @@ def _dp_line(S, tag, r, dev_ms, dev_src):
             f"({dev_src}), idle share {1 - dev_ms / r['wall_ms']:.3f}; peak "
             f"{r['peak_gib']:.3f} GiB; launches fast_nms "
             f"{r['launches']['fast_nms']} over {r['planes']} planes, pose_lm "
-            f"{r['launches']['pose_lm']}, reference-keyframe fallbacks "
-            f"{r['fallbacks']}")
+            f"{r['launches']['pose_lm']} (batched local-map, motion-model "
+            f"and reference-keyframe solves; the last two ran in "
+            f"{r['motion_steps']} and {r['ref_steps']} of {DP_FRAMES - 1} "
+            f"steps), reference-keyframe fallbacks {r['fallbacks']}")
 
 
 def phase_dp(dp, tracking, checkpoint, evaluate, fast_cuda, frame_profile,
-             build_atlas_extractor, cfg, seqs, levels, counters, map_path):
+             dp_profile, build_atlas_extractor, cfg, seqs, levels, counters,
+             map_path):
     """Phase 18: S RGB-D sequences stepped together at full width, S in
     DP_SIZES, through the captured program and through the eager program
-    on the same inputs.  Saves the S = 1 run's
+    on the same inputs (timed at DP_EAGER's sizes, and at every S profiled
+    by phase).  Saves the S = 1 run's
     map (sequence 0) to `map_path`.  Returns (launches of each captured
     run, by path; FAST rows at 8·S planes; the kernels' device ms a
     launch under each captured run's replay)."""
@@ -1550,17 +1682,17 @@ def phase_dp(dp, tracking, checkpoint, evaluate, fast_cuda, frame_profile,
         differ = _dp_differ(g, gp)
         check(not differ and g["launches"] == gp["launches"],
               f"dp S={S}: two captured runs differ ({differ})")
-        replay[S] = {k: gp["per_launch"][n] for k, n in (
-            ("fast_nms", "fast_nms_atlas_kernel"),
-            ("pose_lm", "pose_lm_kernel"))}
-        # eagerly on the same inputs: timed where S is in DP_EAGER; at the
-        # other S profiled instead, for the device ms (a replay of that
-        # graph records only part of its kernels)
-        e = run(False, S not in DP_EAGER)
+        replay[S] = gp["per_launch"]
+        # eagerly on the same inputs: timed where S is in DP_EAGER; at
+        # every S profiled by phase (at the other S also the device ms: a
+        # replay of that graph records only part of its kernels)
+        sp = _dp_split(dp, dp_profile, tracking, cfg, seqs, S, counters)
+        print(dp_profile.split_line(S, sp), flush=True)
+        e = run(False) if S in DP_EAGER else sp
         dev_ms, dev_src = (gp["dev_ms"], "the captured run profiled") \
-            if S in DP_EAGER else (e["dev_ms"], "the eager run profiled, "
-                                   f"{e['kernels']:.1f} kernels a step")
-        stepped = S * steps
+            if S in DP_EAGER else (sp["device_ms"], "the eager run "
+                                   "profiled by phase, "
+                                   f"{sp['kernels']:.1f} kernels a step")
         check(g["prog"].graph_replays == g["prog"].steps == steps,
               f"dp S={S}: {g['prog'].graph_replays} graph replays for "
               f"{g['prog'].steps} steps")
@@ -1568,10 +1700,21 @@ def phase_dp(dp, tracking, checkpoint, evaluate, fast_cuda, frame_profile,
               g["planes"] == 8 * S * DP_FRAMES,
               f"dp S={S}: {g['launches']['fast_nms']} FAST launches over "
               f"{g['planes']} planes, not one over {8 * S} a step")
-        check(g["launches"]["pose_lm"] == 2 * stepped + g["fallbacks"],
+        # one batched local-map solve a step, and one motion-model and one
+        # reference-keyframe solve in the steps where some sequence took
+        # them (device-counted): 2 a step plus the steps that took the
+        # reference keyframe beside the motion model, whatever S is
+        both = g["motion_steps"] + g["ref_steps"] - steps
+        check(g["launches"]["pose_lm"] == steps + g["motion_steps"] +
+              g["ref_steps"] and 0 <= both <= steps,
               f"dp S={S}: pose_lm launches {g['launches']['pose_lm']}, not "
-              f"2 x {stepped} stepped frames + {g['fallbacks']} "
-              "reference-keyframe fallbacks (device-counted)")
+              f"{steps} steps + {g['motion_steps']} motion-model + "
+              f"{g['ref_steps']} reference-keyframe batches "
+              "(device-counted)")
+        print(f"dp S={S}: pose_lm launches {g['launches']['pose_lm']} = 2 x "
+              f"{steps} steps + {both} steps that also took the reference "
+              f"keyframe ({g['fallbacks']} fallbacks over {S} sequences)",
+              flush=True)
         res = _dp_ate(dp, evaluate, seqs, range(S), g)
         for s, (n, ate) in enumerate(res):
             check(n >= DEPTH_TRACKED_MIN_FRAC * DP_FRAMES and
@@ -1588,24 +1731,28 @@ def phase_dp(dp, tracking, checkpoint, evaluate, fast_cuda, frame_profile,
               f"{g['prog'].steps} steps, capture {g['capture_s']:.3f} s; "
               f"kernels a step {gp['kernels']:.1f}; under replay FAST "
               f"{_dev(replay[S]['fast_nms'])} and pose LM "
-              f"{_dev(replay[S]['pose_lm'])} a launch (device; the "
-              "profiled run bit-identical to the timed one)", flush=True)
+              f"{_dev(replay[S]['pose_lm'])} a launch (device; launches "
+              f"traced of counted {gp['traced']}; the profiled run "
+              "bit-identical to the timed one)", flush=True)
         print(_dp_line(S, "captured", g, dev_ms, dev_src), flush=True)
         if S in DP_EAGER:
             print(_dp_line(S, "eager", e, dev_ms, dev_src), flush=True)
-        differ = _dp_differ(g, e)
-        same_hud = np.array_equal(g["huds"], e["huds"])
-        print(f"dp S={S}: captured against eager: state fields differing "
-              f"{differ or 'none'}, HUDs {'equal' if same_hud else 'differ'}",
-              flush=True)
-        check(not differ and same_hud,
-              f"dp S={S}: captured and eager runs differ ({differ}, HUDs "
-              f"equal {same_hud})")
-        check(g["launches"] == e["launches"] and
-              g["fallbacks"] == e["fallbacks"],
-              f"dp S={S}: device launch counts {g['launches']} captured, "
-              f"{e['launches']} eager")
-        del e
+        eagers = [("eager", e)] + ([] if e is sp else [("eager by phase",
+                                                        sp)])
+        for tag, r in eagers:
+            differ = _dp_differ(g, r)
+            same_hud = np.array_equal(g["huds"], r["huds"])
+            print(f"dp S={S}: captured against {tag}: state fields differing "
+                  f"{differ or 'none'}, HUDs "
+                  f"{'equal' if same_hud else 'differ'}", flush=True)
+            check(not differ and same_hud,
+                  f"dp S={S}: captured and {tag} runs differ ({differ}, HUDs "
+                  f"equal {same_hud})")
+            check(g["launches"] == r["launches"] and
+                  _read_track_of(g) == _read_track_of(r),
+                  f"dp S={S}: device launch counts {g['launches']} captured, "
+                  f"{r['launches']} {tag}")
+        del e, sp
         if S == 1:
             checkpoint.save_map(MapState(*(x[0] for x in g["state"])),
                                 map_path)
@@ -1613,6 +1760,8 @@ def phase_dp(dp, tracking, checkpoint, evaluate, fast_cuda, frame_profile,
             _dp_against_alone(dp, tracking, frame_profile, evaluate,
                               build_atlas_extractor, cfg, seqs, g,
                               [a for _, a in res], counters)
+            _dp_track_batch(dp, tracking, counters[1], cfg, seqs, S,
+                            DP_WARM)
         if S == max(DP_SIZES):
             print(f"dp S={S}: peak device memory {g['peak_gib']:.3f} GiB "
                   f"(captured), capture {g['capture_s']:.3f} s (warm-up "
@@ -1877,8 +2026,8 @@ def main() -> int:
         return fail("torch.cuda.is_available() is false")
     try:
         from orb_slam2_tpu_torch import cli as port_cli
-        from orb_slam2_tpu_torch import (config, cuda_build, frame_profile,
-                                         native_build)
+        from orb_slam2_tpu_torch import (config, cuda_build, dp_profile,
+                                         frame_profile, native_build)
         from orb_slam2_tpu_torch.core import control
         from orb_slam2_tpu_torch.frontend import (extractor, fast_cuda,
                                                   pyramid)
@@ -1899,6 +2048,9 @@ def main() -> int:
                     "script")
     if "jax" in sys.modules:
         return fail("jax was imported")
+    global DP_SIZES, DP_FRAMES, DP_WARM
+    DP_SIZES, DP_FRAMES, DP_WARM = (dp_profile.SIZES, dp_profile.FRAMES,
+                                    dp_profile.WARM)
 
     # 1. environment
     name = torch.cuda.get_device_name(0)
@@ -2111,8 +2263,8 @@ def main() -> int:
             map_path = os.path.join(tmp, "dp_seq0_map.npz")
             dp_launches, dp_rows, dp_replay = phase_dp(
                 dp, tracking, checkpoint, evaluate, fast_cuda, frame_profile,
-                build_atlas_extractor, rgbd_cfg, dp_seqs, main_levels,
-                counters, map_path)
+                dp_profile, build_atlas_extractor, rgbd_cfg, dp_seqs,
+                main_levels, counters, map_path)
             launches.update(dp_launches)
             rows += dp_rows
             del dp_seqs
@@ -2155,7 +2307,7 @@ def main() -> int:
         # the same launch replayed from a CUDA graph, as the session runs it
         "replay_ms": frame_row["replay_ms"],
         # device ms a launch inside the dp program's replay, by S (8·S
-        # planes)
+        # planes; null where the traces missed some of its launches)
         "dp_replay_device_ms": {S: r["fast_nms"]
                                 for S, r in dp_replay.items()},
         "plain_ms": frame_row["plain_ms"],

@@ -4,18 +4,25 @@ orb_slam2_tpu/distributed/dp.py).
 
 The JAX package vmaps its per-frame program over a leading sequence axis
 and jits it.  Here the states are the same NamedTuples with a leading [S]
-axis on every field, allocated once; one step extracts the S images in one
-batched atlas program (one FAST launch over 8·S planes), then runs each
-sequence's body in turn on its own views of the stacked state: tracking,
-the keyframe decision, the insertion and one mapping stage, every decision
-a device branch (`core.control.cond` / `switch`, JAX's `lax.cond` /
-`lax.switch`), each result written back into the views.  Eagerly (on the
-CPU, and with `capture=False`) the step's only host reads are the
-helpers' marked predicate reads.  On the card `DPProgram` captures the
-step as one CUDA graph at its first step and replays it, so the host
-reads nothing from `init` to the end of the run: the S bodies are
-unrolled at the graph's top level (every sequence is active on every
-step), their branches IF nodes.
+axis on every field, allocated once.  One step extracts the S images in
+one batched atlas program (one FAST launch over 8·S planes) and tracks
+the S sequences in one batched pass on the stacked state itself
+(`tracking.build_track_step`: every tracking op once over the [S] axis,
+one pose-LM launch for all S problems at a time; the motion model and the
+reference-keyframe match each under a device branch on "some sequence
+takes it", each sequence keeping its own branch's values, as JAX's vmap
+of a `lax.cond` selects).  Then each sequence's keyframe insertion and
+mapping stage run in turn on its own views of the stacked state, every
+decision a device branch (`core.control.cond` / `switch`, JAX's
+`lax.cond` / `lax.switch`), each result written back into the views:
+under vmap JAX would run the insertion and all six stages for every
+sequence at every step.  Eagerly (on the CPU, and with `capture=False`)
+the step's only host reads are the helpers' marked predicate reads.  On
+the card `DPProgram` captures the step as one CUDA graph at its first
+step and replays it, so the host reads nothing from `init` to the end of
+the run: the tracking pass and the S insertion-and-stage bodies at the
+graph's top level (every sequence is active on every step), their
+branches IF nodes.
 
 The sequence axis needs no communication: `shard_batch` gives rank r of a
 process group its own block of sequences, `build_sharded_step` steps it
@@ -37,6 +44,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from orb_slam2_tpu_torch import resolve_device
 from orb_slam2_tpu_torch.config import RGBD, SLAMConfig
@@ -52,6 +60,11 @@ BA_CHUNKS = 3
 BA_ITERS = system.BA_ITERS      # 5: each chunk's LM iterations
 N_STAGES = 2 + BA_CHUNKS + 1
 HUD_LEN = HUD_N_MP + 1          # the track step's HUD: status .. n_mp
+# the step's phases are host ranges of this prefix (extract, track,
+# insert, stage): a torch.profiler trace charges the device work they
+# launch to them (`dp_profile.charge`); without a profiler they cost
+# nothing on the device
+PHASE = "dp_phase/"
 
 # names of the communication events in a torch.profiler trace
 _COMM_PREFIXES = ("c10d::", "gloo:", "nccl", "record_param_comms")
@@ -75,10 +88,12 @@ def _sequence_views(state: MapState, ts: TrackState) -> Views:
 
 
 def _bodies(cfg: SLAMConfig, dev: torch.device):
-    """(init_body, step_body) over per-sequence views, in place:
+    """(init_body, step_body) over the stacked (state, ts) and their
+    per-sequence views, in place:
 
         init_body(views, img [S, H, W], depth [S, H, W])
-        step_body(views, img, depth, fid [S], t [S], hud [S, HUD_LEN])
+        step_body(stacked, views, img, depth, fid [S], t [S],
+                  hud [S, HUD_LEN])
     """
     if cfg.sensor != RGBD:
         raise ValueError("the DP driver batches RGB-D sequences")
@@ -96,10 +111,14 @@ def _bodies(cfg: SLAMConfig, dev: torch.device):
         return frame_fns[S](img, depth, fid, t)
 
     def insert(frame, cur_pids):
-        return lambda st, tt: system.insert_kf(st, tt, frame, cur_pids, cfg)
+        def body(st, tt):
+            with record_function(PHASE + "insert"):
+                return system.insert_kf(st, tt, frame, cur_pids, cfg)
+        return body
 
     def stage(st, tt):
-        return system.mapping_stage(st, tt, cfg, N_STAGES)
+        with record_function(PHASE + "stage"):
+            return system.mapping_stage(st, tt, cfg, N_STAGES)
 
     def init_body(views: Views, img, depth):
         S = img.shape[0]
@@ -118,20 +137,25 @@ def _bodies(cfg: SLAMConfig, dev: torch.device):
             system.assign(st, st1)
             system.assign(tt, tt1)
 
-    def step_body(views: Views, img, depth, fid, t, hud):
-        fr = frames(img, depth, fid, t)
+    def step_body(stacked, views: Views, img, depth, fid, t, hud):
+        with record_function(PHASE + "extract"):
+            fr = frames(img, depth, fid, t)
+        state, ts = stacked
+        with record_function(PHASE + "track"):
+            st1, tt1, cur_pids, h = track(state, ts, fr)
+        system.assign(state, st1)
+        system.assign(ts, tt1)
+        hud.copy_(h)
+        busy_early = (ts.map_kf >= 0) & (ts.map_stage <= 1)
+        need = (hud[:, HUD_NEED_KF] > 0) & ~busy_early
         for s, (st, tt) in enumerate(views):
             frame = _take(fr, s)
-            st1, tt1, cur_pids, h = track(st, tt, frame)
-            busy_early = (tt1.map_kf >= 0) & (tt1.map_stage <= 1)
-            need = (h[HUD_NEED_KF] > 0) & ~busy_early
-            st1, tt1 = control.cond(need, insert(frame, cur_pids),
-                                    control.identity, (st1, tt1))
+            st1, tt1 = control.cond(need[s], insert(frame, cur_pids[s]),
+                                    control.identity, (st, tt))
             st1, tt1 = control.cond(tt1.map_kf >= 0, stage,
                                     control.identity, (st1, tt1))
             system.assign(st, st1)
             system.assign(tt, tt1)
-            hud[s].copy_(h)
 
     return init_body, step_body
 
@@ -167,7 +191,7 @@ def build_dp_step(cfg: SLAMConfig, device=None):
     def step_fn(state, ts, img, depth, fid, t):
         hud = torch.empty((img.shape[0], HUD_LEN), dtype=torch.int32,
                           device=img.device)
-        step_body(views_of(state, ts), img, depth, fid, t, hud)
+        step_body((state, ts), views_of(state, ts), img, depth, fid, t, hud)
         return state, ts, hud
 
     return init_fn, step_fn
@@ -254,8 +278,8 @@ class DPProgram:
         frame ids and timestamps [S] (or one number for all)."""
         self._put(img, depth, fid, t)
         if not self.capture:
-            self._step_body(self._views, self._img, self._depth, self._fid,
-                            self._t, self._hud)
+            self._step_body((self._state, self._ts), self._views, self._img,
+                            self._depth, self._fid, self._t, self._hud)
         else:
             if self._graph is None:
                 self._graph = self._capture_program()
@@ -269,13 +293,14 @@ class DPProgram:
         back in place (`control.capture_program`: warmed up on copies of
         the state first; a failure raises)."""
         def run(on_copies: bool):
-            views, hud = self._views, self._hud
+            stacked, views, hud = (self._state, self._ts), self._views, \
+                self._hud
             if on_copies:
-                views = _sequence_views(system.clone(self._state),
-                                       system.clone(self._ts))
+                stacked = (system.clone(self._state), system.clone(self._ts))
+                views = _sequence_views(*stacked)
                 hud = hud.clone()
-            self._step_body(views, self._img, self._depth, self._fid,
-                            self._t, hud)
+            self._step_body(stacked, views, self._img, self._depth,
+                            self._fid, self._t, hud)
 
         t0 = time.perf_counter()
         g = control.capture_program(run, self.device)

@@ -107,18 +107,34 @@ def device_time_us(evt) -> float:
     return 0.0
 
 
-def wall_window(track, frames, guard=contextlib.nullcontext) -> float:
-    """Wall ms a frame of `track(f)` over `frames` (host clock, one
-    synchronisation at each end); `guard()` is entered around the frames,
-    not the synchronisations."""
+def time_steps(step, frames, guard=contextlib.nullcontext) -> dict:
+    """`step(f)` over `frames`, timed three ways: "wall_ms" a step over
+    the window (host clock, one synchronisation at each end), "step_ms"
+    each step's device span (a CUDA event after each step, no
+    synchronisation inside) and "host_ms" each step call's host time;
+    `guard()` is entered around the steps, not the synchronisations."""
     frames = list(frames)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    host_ms = []
     with guard():
+        evs = [torch.cuda.Event(enable_timing=True)]
+        evs[0].record()
         for f in frames:
-            track(f)
+            h0 = time.perf_counter()
+            step(f)
+            host_ms.append((time.perf_counter() - h0) * 1e3)
+            evs.append(torch.cuda.Event(enable_timing=True))
+            evs[-1].record()
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / len(frames)
+    return {"wall_ms": (time.perf_counter() - t0) * 1e3 / len(frames),
+            "step_ms": [a.elapsed_time(b) for a, b in zip(evs, evs[1:])],
+            "host_ms": host_ms}
+
+
+def wall_window(track, frames, guard=contextlib.nullcontext) -> float:
+    """Wall ms a frame of `track(f)` over `frames` (`time_steps`)."""
+    return time_steps(track, frames, guard)["wall_ms"]
 
 
 def profile_window(track, frames, guard=contextlib.nullcontext):

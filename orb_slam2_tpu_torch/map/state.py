@@ -61,11 +61,13 @@ class MapState(NamedTuple):
 
     @property
     def n_kf(self):
-        return torch.sum(self.kf_valid.to(torch.int32))
+        """Keyframes (per sequence of a stacked state)."""
+        return torch.sum(self.kf_valid.to(torch.int32), dim=-1)
 
     @property
     def n_mp(self):
-        return torch.sum(self.mp_valid.to(torch.int32))
+        """Map points (per sequence of a stacked state)."""
+        return torch.sum(self.mp_valid.to(torch.int32), dim=-1)
 
 
 def empty_map(cfg: SLAMConfig, device=None) -> MapState:
@@ -119,22 +121,53 @@ def empty_map(cfg: SLAMConfig, device=None) -> MapState:
 # than the table, so masked-off rows land in the sliced-off "void" slot
 # ---------------------------------------------------------------------------
 
-def mask_from_ids(ids: torch.Tensor, ok: torch.Tensor, n: int) -> torch.Tensor:
+def mask_from_ids(ids: torch.Tensor, ok: torch.Tensor, n: int,
+                  seq: bool = False) -> torch.Tensor:
     """[n] bool: True at ids[ok] (the `zeros.at[where(ok, ids, n)].set(True)`
-    idiom).  All writes carry the same value, so duplicates are harmless."""
-    m = torch.zeros(n + 1, dtype=torch.bool, device=ids.device)
-    m.index_fill_(0, torch.where(ok, ids.long(), n).reshape(-1), True)
-    return m[:n]
+    idiom).  All writes carry the same value, so duplicates are harmless.
+    With `seq`, ids [S, ...]: one mask per sequence, [S, n]."""
+    lead = ids.shape[:1] if seq else ()
+    tgt = torch.where(ok, ids.long(), n).reshape(lead + (-1,))
+    return torch.zeros(lead + (n + 1,), dtype=torch.bool, device=ids.device
+                       ).scatter_(-1, tgt, True)[..., :n]
 
 
-def count_ids(ids: torch.Tensor, ok: torch.Tensor, n: int) -> torch.Tensor:
+def count_ids(ids: torch.Tensor, ok: torch.Tensor, n: int,
+              seq: bool = False) -> torch.Tensor:
     """[n] int32 occurrence counts of ids[ok]: an integer scatter-add into a
     count of fixed length (exact in any order; `bincount` would read its
-    length from the device)."""
-    tgt = torch.where(ok, ids.long(), n).reshape(-1)
-    return torch.zeros(n + 1, dtype=torch.int32, device=ids.device
-                       ).scatter_add_(0, tgt, torch.ones_like(
-                           tgt, dtype=torch.int32))[:n]
+    length from the device).  With `seq`, ids [S, ...]: one count per
+    sequence, [S, n]."""
+    lead = ids.shape[:1] if seq else ()
+    tgt = torch.where(ok, ids.long(), n).reshape(lead + (-1,))
+    return torch.zeros(lead + (n + 1,), dtype=torch.int32, device=ids.device
+                       ).scatter_add_(-1, tgt, torch.ones_like(
+                           tgt, dtype=torch.int32))[..., :n]
+
+
+# ---------------------------------------------------------------------------
+# per-sequence rows of a stacked state (a leading [S] axis on every field)
+# ---------------------------------------------------------------------------
+
+def seq_index(idx: torch.Tensor) -> torch.Tensor:
+    """arange(S) shaped [S, 1, ...] to broadcast against idx [S, ...]."""
+    S = idx.shape[0]
+    return torch.arange(S, device=idx.device).view((S,) + (1,) *
+                                                   (idx.dim() - 1))
+
+
+def seq_take(t: torch.Tensor, *idx: torch.Tensor) -> torch.Tensor:
+    """t[s, i[s], j[s], ...] for each sequence s: the per-sequence gather
+    of a stacked table t [S, R, ...] by indices [S, ...] (one index
+    tensor a table axis, broadcast together).  No host read."""
+    return t[(seq_index(idx[0]),) + tuple(i.long() for i in idx)]
+
+
+def seq_put_row(t: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor) -> torch.Tensor:
+    """A copy of the stacked t [S, R, ...] with row k[s] of sequence s set
+    to v[s] [S, ...]: the per-sequence `put_row`."""
+    return t.index_put((seq_index(k), k.long()), v.to(t.dtype))
 
 
 def row(t: torch.Tensor, k) -> torch.Tensor:
@@ -191,9 +224,10 @@ def set_last(n: int, idx: torch.Tensor, vals: torch.Tensor,
 
 def first_flagged(mask: torch.Tensor, P: int) -> torch.Tensor:
     """The first P indices where mask holds, in ascending order, padded with
-    the first unflagged indices — `lax.top_k(mask.astype(int32), P)[1]`."""
+    the first unflagged indices — `lax.top_k(mask.astype(int32), P)[1]`
+    (along the last axis: per sequence of a stacked mask)."""
     return torch.sort(mask.to(torch.int8), descending=True, stable=True
-                      )[1][:P]
+                      )[1][..., :P]
 
 
 def stable_topk(x: torch.Tensor, k: int):
@@ -258,6 +292,10 @@ def covisible_neighbors(state: MapState, k, n: int,
 
 
 def resolve_replaced(state: MapState, pid: torch.Tensor) -> torch.Tensor:
-    """Follow the replacement forwarding chain one hop."""
-    fwd = state.mp_replaced[pid.long().clamp(min=0)]
+    """Follow the replacement forwarding chain one hop (per sequence of a
+    stacked state, pid [S, ...])."""
+    safe = pid.long().clamp(min=0)
+    rep = state.mp_replaced
+    fwd = rep.gather(-1, safe.reshape(rep.shape[:-1] + (-1,))
+                     ).reshape(pid.shape)
     return torch.where((pid >= 0) & (fwd >= 0), fwd, pid)

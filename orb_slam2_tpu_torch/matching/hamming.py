@@ -22,8 +22,9 @@ def pm1_from_packed(desc: torch.Tensor) -> torch.Tensor:
 
 
 def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
-    """Packed descriptors [Na, 32], [Nb, 32] -> int32 Hamming [Na, Nb]."""
-    dot = pm1_from_packed(desc_a) @ pm1_from_packed(desc_b).T
+    """Packed descriptors [..., Na, 32], [..., Nb, 32] -> int32 Hamming
+    [..., Na, Nb]: with leading batch axes, one batched product."""
+    dot = pm1_from_packed(desc_a) @ pm1_from_packed(desc_b).transpose(-1, -2)
     return ((N_BITS - dot) * 0.5).to(torch.int32)
 
 

@@ -7,7 +7,11 @@ last round (reference Optimizer::PoseOptimization, Optimizer.cc:239-451).
 `pose_optimize` dispatches on the tensors' device: CUDA tensors go to the
 hand-written kernel (csrc/pose_lm.cu via `pose_lm_cuda`), one launch for
 the whole schedule; CPU tensors to `pose_optimize_plain`, the same function
-in tensor ops.  There is no fallback from one to the other.
+in tensor ops.  There is no fallback from one to the other.  Both take one
+problem or a batch of B with a leading [B] axis on every per-problem
+argument (the dp step's S sequences): the kernel solves a batch in one
+launch, one thread-block cluster a problem, and the plain version solves
+each problem on its own, in the same arithmetic as alone.
 
 The JAX `while_loop` stops a round once a step converged.  The plain
 version runs each round's full iteration count with masked updates: after
@@ -26,14 +30,13 @@ from orb_slam2_tpu_torch.core import control, lie
 from orb_slam2_tpu_torch.solvers import pose_lm_cuda
 
 # when a list, each pose_optimize call on CUDA tensors made outside a
-# capture appends its arguments to it: a run's problems, to hold the kernel
-# against its plain version at their shapes (and, eagerly, one entry a
-# kernel launch)
+# capture appends the arguments of each of its problems to it: a run's
+# problems, to hold the kernel against its plain version at their shapes
 recorded = None
 
 
 class PoseOptResult(NamedTuple):
-    T: torch.Tensor          # [7] optimized pose
+    T: torch.Tensor          # [7] optimized pose ([B, 7] for a batch)
     inliers: torch.Tensor    # [N] bool
     n_inliers: torch.Tensor
     chi2: torch.Tensor
@@ -76,26 +79,40 @@ def _huber_w(chi2, delta2):
 
 def pose_optimize(T0, pw, obs_uv, obs_ur, inv_sigma2, valid, is_stereo,
                   K, bf, cfg: BAConfig = BAConfig()) -> PoseOptResult:
-    """Optimize one camera pose against fixed 3D points.
+    """Optimize one camera pose against fixed 3D points, or a batch of B.
 
     T0: [7]; pw: [N, 3]; obs_uv: [N, 2]; obs_ur: [N]; inv_sigma2: [N];
-    valid: [N] bool; is_stereo: [N] bool; K: [4]; bf: float."""
+    valid: [N] bool; is_stereo: [N] bool; K: [4]; bf: float.  A batch has
+    a leading [B] on T0 and on every [N] argument, and its results too:
+    on CUDA tensors it is one kernel launch."""
     if not pw.is_cuda:
         return pose_optimize_plain(T0, pw, obs_uv, obs_ur, inv_sigma2, valid,
                                    is_stereo, K, bf, cfg)
+    one = T0.dim() == 1
+    args = (T0, pw, obs_uv, obs_ur, inv_sigma2, valid, is_stereo)
+    if one:
+        args = tuple(a[None] for a in args)
     if recorded is not None and not control.capturing():
-        recorded.append((T0, pw, obs_uv, obs_ur, inv_sigma2, valid, is_stereo,
-                         K, bf, cfg))
-    T, inl, n_in, chi2, _ = pose_lm_cuda.pose_lm_cuda(
-        T0[None], pw[None], obs_uv[None], obs_ur[None], inv_sigma2[None],
-        valid[None], is_stereo[None], K, bf, cfg)
-    return PoseOptResult(T=T[0], inliers=inl[0], n_inliers=n_in[0],
-                         chi2=chi2[0])
+        recorded.extend(tuple(a[b] for a in args) + (K, bf, cfg)
+                        for b in range(args[0].shape[0]))
+    T, inl, n_in, chi2, _ = pose_lm_cuda.pose_lm_cuda(*args, K, bf, cfg)
+    if one:
+        return PoseOptResult(T=T[0], inliers=inl[0], n_inliers=n_in[0],
+                             chi2=chi2[0])
+    return PoseOptResult(T=T, inliers=inl, n_inliers=n_in, chi2=chi2)
 
 
 def pose_optimize_plain(T0, pw, obs_uv, obs_ur, inv_sigma2, valid, is_stereo,
                         K, bf, cfg: BAConfig = BAConfig()) -> PoseOptResult:
-    """`pose_optimize` in tensor ops (the kernel's plain version)."""
+    """`pose_optimize` in tensor ops (the kernel's plain version).  A batch
+    (a leading [B] axis) is solved problem by problem: each problem's
+    reductions then run over its own points in the order they take alone,
+    so a problem gets the same bits in a batch as alone."""
+    if T0.dim() == 2:
+        outs = [pose_optimize_plain(*(a[b] for a in (
+            T0, pw, obs_uv, obs_ur, inv_sigma2, valid, is_stereo)), K, bf,
+            cfg) for b in range(T0.shape[0])]
+        return PoseOptResult(*(torch.stack(f) for f in zip(*outs)))
     dev = pw.device
     chi2_th = torch.where(is_stereo, cfg.chi2_stereo, cfg.chi2_mono)
     delta2 = torch.where(is_stereo, cfg.huber_stereo ** 2, cfg.huber_mono ** 2)

@@ -5,7 +5,8 @@ within 1e-4 with the same inliers (also with every row stereo), two
 launches bit-identical — the per-level extractor with the kernel against
 the same extractor with the plain version on the card, and the mono and
 two-image extractors and the stereo frame function, card against CPU —
-and the captured step: the kernels' device launch counts (graph replays
+`pose_optimize` over a batch of problems (the dp step's sequences) as
+one launch equal to one launch a problem — and the captured step: the kernels' device launch counts (graph replays
 included), `core.control`'s IF nodes against the eager helpers, and a
 session's replayed frames against its eager frames, and the dp program's
 replayed steps (`distributed/dp.py` `DPProgram`) against its eager steps,
@@ -292,6 +293,32 @@ def test_pose_lm_batch_and_two_launches_bit_identical():
         one = pose_opt.pose_optimize(*p)
         assert torch.equal(one.T, a[0][i]) and torch.equal(one.inliers,
                                                            a[1][i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2, 4, 8])
+def test_pose_optimize_batch_is_one_launch_of_single_problems(S):
+    """`pose_optimize` over [S] problems (the dp step's S sequences at the
+    RGB-D path's N = 1024, a third stereo) is one device launch and gives
+    each problem the bits of its own single-problem launch; the plain
+    version over the batch equals it on each problem too."""
+    _card()
+    probs = [_pose_problem(10 + s, 1024, 1 / 3) for s in range(S)]
+    stack = [torch.stack([p[i] for p in probs]) for i in range(7)]
+    args = stack + [probs[0][7], probs[0][8], config.BAConfig()]
+    before = pose_lm_cuda.device_launches()
+    many = pose_opt.pose_optimize(*args)
+    assert pose_lm_cuda.device_launches() == before + 1
+    assert many.T.shape == (S, 7) and many.n_inliers.shape == (S,)
+    plain = pose_opt.pose_optimize_plain(*args)
+    for i, p in enumerate(probs):
+        one = pose_opt.pose_optimize(*p)
+        for f, x, y in zip(one._fields, one, many):
+            assert torch.equal(x, y[i]), (i, f)
+        alone = pose_opt.pose_optimize_plain(*p)
+        for f, x, y in zip(alone._fields, alone, plain):
+            assert torch.equal(x, y[i]), (i, f)
+    assert pose_lm_cuda.device_launches() == before + 1 + S
 
 
 @pytest.mark.cuda

@@ -11,6 +11,15 @@ two sequences as one S = 2 batch.  JAX compiles in a background thread
 (XLA's compiler releases the GIL) while the port's runs go ahead, so the
 tests that need JAX's results come last.
 
+Tracking runs once over the S sequences (`tracking.build_track_step` on
+the stacked state): a mixed batch of S = 3 (one sequence with no
+velocity, one whose motion model fails and falls back to the reference
+keyframe, one tracked by the motion model) gives each sequence exactly the
+bits of its S = 1 call and the same per-sequence counts, and each row is
+held to JAX's unbatched track step (jitted after JAX's dp step, in the
+same background thread) from JAX's dp states, to 1e-4 in the pose, as
+tests/test_torch_session.py holds one step from the same state.
+
 The rewritten step makes every decision a device branch and writes into
 the stacked state in place: the S = 2 run goes under test_torch_graph's
 `HostReads` (0 reads but the helpers' marked predicate reads, over
@@ -46,6 +55,7 @@ from orb_slam2_tpu.core import lie as jlie
 from orb_slam2_tpu.distributed import dp as jdp
 from orb_slam2_tpu.io import synthetic
 from orb_slam2_tpu.map import empty_map as jempty_map
+from orb_slam2_tpu.pipeline import frame as jframe
 from orb_slam2_tpu.pipeline import tracking as jtracking
 from orb_slam2_tpu_torch import config as tconfig
 from orb_slam2_tpu_torch import convert
@@ -54,6 +64,8 @@ from orb_slam2_tpu_torch.distributed.launch import free_port
 from orb_slam2_tpu_torch.map.state import empty_map as tempty_map
 from orb_slam2_tpu_torch.core import control
 from orb_slam2_tpu_torch.pipeline import frame as tframe
+from orb_slam2_tpu_torch.pipeline import system as tsystem
+from orb_slam2_tpu_torch.pipeline import tracking as ttracking
 from orb_slam2_tpu_torch.pipeline.tracking import (HUD_N_INLIERS, HUD_N_KF,
                                                    HUD_N_MP, HUD_NEED_KF,
                                                    HUD_STATUS,
@@ -64,6 +76,10 @@ S = 2
 N_FRAMES = 8
 N_STAGES_RUN = tdp.N_STAGES - 1     # every stage but the cull
 TRAJ_TOL = 1e-3
+POSE_TOL = 1e-4                     # one track step from the same state
+# the counts the batched track must give as its S = 1 calls do, summed
+SEQ_COUNTS = ("ref_kf_fallbacks", "need_close_frames", "vo_candidates",
+              "vo_inliers")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -156,19 +172,30 @@ def _compile_jax():
                                    jnp.float32(0.0)).compile())
 
 
+def _compile_jax_track():
+    """JAX's track step, jitted and compiled for one sequence."""
+    cfg = small_rgbd_cfg(jconfig)
+    fr = tsystem.empty_frames(small_rgbd_cfg(tconfig), 1, "cpu")
+    fr = jframe.Frame(*(jnp.asarray(x[0].numpy()) for x in fr))
+    return jax.jit(jtracking.build_track_step(cfg)).lower(
+        jempty_map(cfg), jtracking.empty_track_state(cfg), fr).compile()
+
+
 @pytest.fixture(autouse=True, scope="module")
 def jax_compiled():
-    """A future of `_compile_jax()`, started before the module's first
-    test."""
+    """Futures of `_compile_jax()` and `_compile_jax_track()`, started
+    before the module's first test, one after the other in one thread
+    (~38 s and ~12 s on the CPU: together still shorter than the port's
+    runs before the first test that needs them)."""
     with ThreadPoolExecutor(1) as ex:
-        yield ex.submit(_compile_jax)
+        yield ex.submit(_compile_jax), ex.submit(_compile_jax_track)
 
 
 @pytest.fixture(scope="module")
 def jax_runs(batch, jax_compiled):
     """JAX's dp init and step, jitted, per sequence: [(state, ts, huds)]."""
     cfg = small_rgbd_cfg(jconfig)
-    init_fn, step_fn = jax_compiled.result()
+    init_fn, step_fn = jax_compiled[0].result()
     imgs, depths, ts_ = batch
     out = []
     for s in range(S):
@@ -332,3 +359,117 @@ def test_trajectories_match_jax_session_export(port, jax_runs):
         np.testing.assert_array_equal(t, np.asarray(traj[:, 16])[ok])
         np.testing.assert_allclose(twc[:, 4:7], np.asarray(jtwc)[ok, 4:7],
                                    rtol=0, atol=TRAJ_TOL)
+
+
+# ---------------------------------------------------------------------------
+# tracking over the sequence axis
+# ---------------------------------------------------------------------------
+
+MIXED = ("motion model", "no velocity", "motion model fails")
+
+
+@pytest.fixture(scope="module")
+def mixed(batch, jax_runs):
+    """S = 3 (JAX state, JAX track state, port Frame) triples from JAX's dp
+    states after frame N_FRAMES - 1, and frame N_FRAMES: sequence 0 as it
+    is (tracked by the motion model), sequence 1 with no velocity (the
+    reference keyframe), sequence 0 with a velocity that turns the camera
+    round (its motion model finds nothing: the fallback)."""
+    cfg = small_rgbd_cfg(tconfig)
+    imgs, depths, ts_ = (torch.from_numpy(a) for a in batch)
+    fn = tframe.build_rgbd_frame_fn(cfg, "cpu")
+    f = N_FRAMES
+    out = []
+    for s, case in zip((0, 1, 0), MIXED):
+        jst, jts, _ = jax_runs[s]
+        if case == "no velocity":
+            jts = jts._replace(has_velocity=jnp.asarray(False))
+        elif case == "motion model fails":
+            jts = jts._replace(velocity=jnp.asarray(
+                [0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0], jnp.float32))
+        out.append((jst, jts, fn(imgs[s, f], depths[s, f], f, ts_[s, f])))
+    return out
+
+
+def _stack(trees):
+    return type(trees[0])(*(torch.stack(x) for x in zip(*trees)))
+
+
+def _track_counts():
+    return {k: int(getattr(ttracking, k)) for k in SEQ_COUNTS +
+            ("motion_model_steps", "ref_kf_steps")}
+
+
+def _reset_counts():
+    for k in SEQ_COUNTS + ("motion_model_steps", "ref_kf_steps"):
+        getattr(ttracking, k).reset()
+
+
+def _carried(jst, jts):
+    to_np = lambda nt: {f: np.array(v) for f, v in zip(nt._fields, nt)}
+    return (convert.map_state_from_numpy(to_np(jst), device="cpu"),
+            convert.track_state_from_numpy(to_np(jts), device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def batched_track(mixed):
+    """The port's track over the S = 3 mixed batch, and each sequence's
+    S = 1 call on the same state: (batched out, counts; [S = 1 outs],
+    summed counts)."""
+    track = ttracking.build_track_step(small_rgbd_cfg(tconfig))
+    carried = [_carried(jst, jts) + (fr,) for jst, jts, fr in mixed]
+    _reset_counts()
+    many = track(*(_stack(list(x)) for x in zip(*carried)))
+    many_counts = _track_counts()
+    ones = []
+    _reset_counts()
+    for st, ts, fr in carried:
+        one = lambda t: type(t)(*(x[None] for x in t))
+        ones.append(track(one(st), one(ts), one(fr)))
+    return many, many_counts, ones, _track_counts()
+
+
+def test_batched_track_equals_each_sequence_alone(batched_track):
+    """One track call over the mixed S = 3 batch gives each sequence the
+    bits of its S = 1 call, and the per-sequence counts their sum: one
+    fallback; the motion model and the reference-keyframe match each ran
+    once for the batch, twice over the three single calls."""
+    many, mc, ones, oc = batched_track
+    (mst, mts, mpids, mhud) = many
+    for s, (ost, ots, opids, ohud) in enumerate(ones):
+        assert torch.equal(mpids[s], opids[0]), s
+        assert torch.equal(mhud[s], ohud[0]), s
+        for a, b in ((mst, ost), (mts, ots)):
+            for f, x, y in zip(a._fields, a, b):
+                assert torch.equal(x[s], y[0]), (s, f)
+    assert {k: mc[k] for k in SEQ_COUNTS} == {k: oc[k] for k in SEQ_COUNTS}
+    assert mc["ref_kf_fallbacks"] == 1
+    assert (mc["motion_model_steps"], mc["ref_kf_steps"]) == (1, 1)
+    assert (oc["motion_model_steps"], oc["ref_kf_steps"]) == (2, 2)
+    assert (mhud[:, HUD_STATUS] == 2).all()
+
+
+@pytest.mark.parametrize("s", range(len(MIXED)))
+def test_batched_track_matches_jax(mixed, batched_track, jax_compiled, s):
+    """Row s of the batched track against JAX's track step on that
+    sequence alone (jitted, from the same state and frame): status,
+    keyframe decision and counts exactly, inliers within 2% + 2, the pose
+    within POSE_TOL, the tracked point ids nearly the same."""
+    jst, jts, fr = mixed[s]
+    jfr = jframe.Frame(*(jnp.asarray(x.numpy()) for x in fr))
+    j_state, j_ts, j_pids, j_hud = jax_compiled[1].result()(jst, jts, jfr)
+    (mst, mts, mpids, mhud) = batched_track[0]
+    j_hud, t_hud = np.asarray(j_hud), mhud[s].numpy()
+    for col in (HUD_STATUS, HUD_NEED_KF, HUD_N_KF, HUD_N_MP):
+        assert t_hud[col] == j_hud[col], (MIXED[s], col)
+    assert abs(int(t_hud[HUD_N_INLIERS]) - int(j_hud[HUD_N_INLIERS])) <= \
+        0.02 * int(j_hud[HUD_N_INLIERS]) + 2
+    a = mts.T[s].numpy().astype(np.float64)
+    b = np.asarray(j_ts.T, np.float64)
+    if np.dot(a[:4], b[:4]) < 0:
+        a[:4] = -a[:4]
+    np.testing.assert_allclose(a, b, rtol=0, atol=POSE_TOL)
+    t_ids = set(mpids[s][mpids[s] >= 0].tolist())
+    j_ids = set(np.asarray(j_pids)[np.asarray(j_pids) >= 0].tolist())
+    assert len(t_ids & j_ids) >= 0.98 * len(t_ids | j_ids), MIXED[s]
+    assert bool(mts.has_velocity[s]) and bool(j_ts.has_velocity)

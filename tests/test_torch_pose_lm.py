@@ -133,6 +133,22 @@ def test_pose_optimize_on_cpu_is_the_plain_version():
         assert torch.equal(x, y)
 
 
+def test_pose_optimize_over_a_batch_on_cpu_equals_each_problem():
+    """Three problems with a leading [3] axis (the dp step's sequences):
+    each gets the bits it gets alone, and nothing launches."""
+    probs = [[torch.from_numpy(np.array(x)) for x in make_problem(s, f)]
+             for s, f in ((20, 0.0), (21, 1 / 3), (22, 1.0))]
+    launches = pose_lm_cuda.device_launches()
+    many = tpo.pose_optimize(*(torch.stack(x) for x in zip(*probs)),
+                             torch.tensor(K4), BF, TBA())
+    assert pose_lm_cuda.device_launches() == launches
+    assert many.T.shape == (3, 7) and many.inliers.shape == (3, N)
+    for i, p in enumerate(probs):
+        one = tpo.pose_optimize(*p, torch.tensor(K4), BF, TBA())
+        for f, x, y in zip(one._fields, one, many):
+            assert torch.equal(x, y[i]), (i, f)
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     p = [torch.from_numpy(np.array(x))[None] for x in make_problem(14, 0.0)]
     with pytest.raises(ValueError, match="pose_lm_cuda expects"):
