@@ -4,7 +4,10 @@ orb_slam2_tpu/ba/local.py).
 Local BA (reference Optimizer::LocalBundleAdjustment): variable keyframes
 = the new KF and its covisible neighbours, variable points = all they
 observe, fixed anchors = the other observers of those points; outlier
-observations are erased afterwards.  Observations are laid out camera-major
+observations are erased afterwards.  It is written over a leading
+sequence axis [S] (S problems built and solved together, each with its
+own damping); one sequence's state goes through it as S = 1
+(`map.state.one_or_many`).  Observations are laid out camera-major
 ([C, N] rows flattened) with the mirror-transpose index `pt_obs_r` [P, D],
 as `ba_solve_dense` requires.
 """
@@ -20,59 +23,66 @@ from orb_slam2_tpu_torch.map import ops
 from orb_slam2_tpu_torch.map.state import (MapState, count_ids,
                                            covisible_neighbors, first_flagged,
                                            last_writer, mask_from_ids,
-                                           stable_topk)
+                                           one_or_many, seq_ids, seq_index,
+                                           seq_take, stable_topk)
 
 
 def _obs_weight(state: MapState, cams, cfg: SLAMConfig):
-    """inv_sigma2 per (cam slot, keypoint)."""
-    oct_ = state.kf_octave[cams.long().clamp(min=0)]
+    """inv_sigma2 per (cam slot, keypoint): [S, C, N]."""
+    oct_ = seq_take(state.kf_octave, cams.long().clamp(min=0))
     return (1.0 / cfg.orb.scale_factor ** 2) ** oct_.to(torch.float32)
 
 
 def _index_of(ids: torch.Tensor, ok: torch.Tensor, n: int) -> torch.Tensor:
-    """[n] inverse map: position of each id in `ids` (-1 if absent).  An id
-    listed twice maps to its last position, as the JAX scatter leaves it."""
-    out = torch.full((n + 1,), -1, dtype=torch.int64, device=ids.device)
-    pos = torch.arange(ids.shape[0], device=ids.device)
+    """[S, n] inverse map of each sequence's ids [S, L]: position of each
+    id (-1 if absent).  An id listed twice maps to its last position, as
+    the JAX scatter leaves it."""
+    S, L = ids.shape
+    out = torch.full((S, n + 1), -1, dtype=torch.int64, device=ids.device)
+    pos = torch.arange(L, device=ids.device).expand(S, L)
     win = last_writer(ids, ok, n)
-    out[torch.where(win, ids.long(), n)] = pos
-    return out[:n]
+    tgt = torch.where(win, ids.long(), n)
+    out[seq_index(tgt), tgt] = pos
+    return out[:, :n]
 
 
+@one_or_many
 def build_local_problem(state: MapState, kf_id, cfg: SLAMConfig):
-    """Returns (BAProblem, pt_obs_r [P, D], cams [C], psel [P], psel_ok)."""
+    """Each sequence's local BA problem around keyframe kf_id[s]: returns
+    (BAProblem with a leading [S] axis, pt_obs_r [S, P, D], cams [S, C],
+    psel [S, P], psel_ok)."""
     dev = state.kf_pose.device
     Lv = cfg.cap.local_ba_kfs
     Lf = cfg.cap.local_ba_fixed
-    K_, N = state.kf_obs.shape
-    M = state.mp_pos.shape[0]
+    S, K_, N = state.kf_obs.shape
+    M = state.mp_pos.shape[-2]
     P = min(cfg.cap.local_ba_points, M)
+    kf_id = seq_ids(kf_id, S, dev)
 
     nb = covisible_neighbors(state, kf_id, Lv - 1, min_weight=1)
-    k1 = kf_id.reshape(1).long() if isinstance(kf_id, torch.Tensor) else \
-        torch.full((1,), kf_id, dtype=torch.int64, device=dev)
-    local = torch.cat([k1, nb])                                      # [Lv]
+    local = torch.cat([kf_id[:, None], nb], 1)                      # [S, Lv]
     local_ok = local >= 0
     lsafe = local.clamp(min=0)
 
-    lobs = state.kf_obs[lsafe]
-    pmask = mask_from_ids(lobs, local_ok[:, None] & (lobs >= 0), M) & \
-        state.mp_valid
+    lobs = seq_take(state.kf_obs, lsafe)
+    pmask = mask_from_ids(lobs, local_ok[..., None] & (lobs >= 0), M,
+                          seq=True) & state.mp_valid
     # fixed anchors: other observers of local points
     obs_kf = state.mp_obs_kf
-    counts = count_ids(obs_kf, pmask[:, None] & (obs_kf >= 0), K_)
+    counts = count_ids(obs_kf, pmask[..., None] & (obs_kf >= 0), K_,
+                       seq=True)
     # JAX sets this mask with `.at[lsafe].set(local_ok)`: padding slots
     # (-1, clipped to 0) write False over keyframe 0, so keyframe 0 counts
     # as an anchor candidate whenever the neighbour list is not full; the
     # last write to each id decides, as there
     last = last_writer(lsafe, torch.ones_like(local_ok), K_)
-    is_local_kf = mask_from_ids(lsafe, last & local_ok, K_)
+    is_local_kf = mask_from_ids(lsafe, last & local_ok, K_, seq=True)
     counts = torch.where(is_local_kf, 0, counts)
     top_counts, fixed = stable_topk(counts, Lf)
     fixed = torch.where(top_counts > 0, fixed, -1)
 
-    cams = torch.cat([local, fixed])                                # [C]
-    C = cams.shape[0]
+    cams = torch.cat([local, fixed], 1)                             # [S, C]
+    C = cams.shape[1]
     csafe = cams.clamp(min=0)
     cam_ok = cams >= 0
     is_local = torch.arange(C, device=dev) < Lv
@@ -81,72 +91,80 @@ def build_local_problem(state: MapState, kf_id, cfg: SLAMConfig):
     slot_of = _index_of(csafe, cam_ok, K_)
 
     psel = first_flagged(pmask, P)
-    psel_ok = pmask[psel]
+    psel_ok = pmask.gather(1, psel)
     inv_sel = _index_of(psel, psel_ok, M)
 
-    rows = state.kf_obs[csafe].long()                               # [C, N]
-    pid_l = inv_sel[rows.clamp(min=0)]
-    active = (cam_ok[:, None] & (rows >= 0) & (pid_l >= 0) &
-              state.kf_kp_valid[csafe])
+    rows = seq_take(state.kf_obs, csafe).long()                     # [S, C, N]
+    pid_l = seq_take(inv_sel, rows.clamp(min=0))
+    active = (cam_ok[..., None] & (rows >= 0) & (pid_l >= 0) &
+              seq_take(state.kf_kp_valid, csafe))
     pid_l = torch.where(active, pid_l, 0)
 
-    okf = state.mp_obs_kf[psel].long()
-    okp = state.mp_obs_kp[psel].long()
-    oslot = slot_of[okf.clamp(min=0)]
-    mir_ok = psel_ok[:, None] & (okf >= 0) & (oslot >= 0)
+    okf = seq_take(state.mp_obs_kf, psel).long()
+    okp = seq_take(state.mp_obs_kp, psel).long()
+    oslot = seq_take(slot_of, okf.clamp(min=0))
+    mir_ok = psel_ok[..., None] & (okf >= 0) & (oslot >= 0)
     r_idx = oslot.clamp(min=0) * N + okp.clamp(min=0)
-    mir_ok = mir_ok & active[oslot.clamp(min=0), okp.clamp(min=0)]
+    mir_ok = mir_ok & seq_take(active, oslot.clamp(min=0), okp.clamp(min=0))
     pt_obs_r = torch.where(mir_ok, r_idx, -1)
 
     R = C * N
-    member = mask_from_ids(r_idx, mir_ok, R)
-    w = torch.where(active, _obs_weight(state, cams, cfg), 0.0).reshape(-1)
+    member = mask_from_ids(r_idx, mir_ok, R, seq=True)
+    w = torch.where(active, _obs_weight(state, cams, cfg), 0.0).reshape(S, -1)
     w = torch.where(member, w, 0.0)
 
     prob = BAProblem(
-        cam_pose=state.kf_pose[csafe], cam_var=cam_var,
-        points=state.mp_pos[psel], pt_var=psel_ok,
-        obs_cam=torch.arange(C, device=dev).repeat_interleave(N),
-        obs_pid=pid_l.reshape(-1),
-        obs_uv=state.kf_uv[csafe].reshape(-1, 2),
-        obs_ur=state.kf_ur[csafe].reshape(-1),
-        obs_w=w, K=camera.intrinsics(cfg.camera, dev), bf=cfg.camera.bf)
+        cam_pose=seq_take(state.kf_pose, csafe), cam_var=cam_var,
+        points=seq_take(state.mp_pos, psel), pt_var=psel_ok,
+        obs_cam=torch.arange(C, device=dev).repeat_interleave(N).expand(
+            S, R),
+        obs_pid=pid_l.reshape(S, -1),
+        obs_uv=seq_take(state.kf_uv, csafe).reshape(S, -1, 2),
+        obs_ur=seq_take(state.kf_ur, csafe).reshape(S, -1),
+        obs_w=w, K=camera.intrinsics(cfg.camera, dev).expand(S, 4),
+        bf=cfg.camera.bf)
     return prob, pt_obs_r, cams, psel, psel_ok
 
 
+@one_or_many
 def local_ba(state: MapState, kf_id, cfg: SLAMConfig, n_outer: int = 10,
              lam0=1e-4, return_lam: bool = False):
-    """Run local BA and write the results + outlier removal back.  With
-    `return_lam=True` returns (state, final LM damping) so the chunked
+    """Run each sequence's local BA (its own damping `lam0` [S] or a
+    number) and write the results + outlier removal back.  With
+    `return_lam=True` returns (state, final LM damping [S]) so the chunked
     mapping stages resume where the previous chunk stopped."""
     prob, pt_obs_r, cams, psel, psel_ok = build_local_problem(state, kf_id,
                                                               cfg)
-    K_, N = state.kf_obs.shape
-    M = state.mp_pos.shape[0]
+    S, K_, N = state.kf_obs.shape
+    M = state.mp_pos.shape[-2]
     res = ba_solve_dense(prob, pt_obs_r, n_per_cam=N, n_outer=n_outer,
                          lam0=lam0, chi2_th_mono=cfg.ba.chi2_mono,
                          chi2_th_stereo=cfg.ba.chi2_stereo)
-    C = cams.shape[0]
+    C = cams.shape[1]
     csafe = cams.clamp(min=0)
     tgt = torch.where(prob.cam_var, csafe, K_)
-    pose_buf = torch.cat([state.kf_pose, torch.zeros_like(state.kf_pose[:1])])
-    hit = torch.zeros(K_ + 1, dtype=torch.bool, device=cams.device)
-    pose_buf[tgt] = res.cam_pose
-    hit[tgt] = prob.cam_var
-    kf_pose = torch.where(hit[:K_, None], pose_buf[:K_], state.kf_pose)
+    ar = seq_index(tgt)
+    pose_buf = torch.cat([state.kf_pose,
+                          torch.zeros_like(state.kf_pose[:, :1])], 1)
+    hit = torch.zeros((S, K_ + 1), dtype=torch.bool, device=cams.device)
+    pose_buf[ar, tgt] = res.cam_pose
+    hit[ar, tgt] = prob.cam_var
+    kf_pose = torch.where(hit[:, :K_, None], pose_buf[:, :K_], state.kf_pose)
     ptgt = torch.where(psel_ok, psel, M)
-    mp_pos = torch.cat([state.mp_pos, torch.zeros_like(state.mp_pos[:1])])
-    mp_pos[ptgt] = res.points
-    state = state._replace(kf_pose=kf_pose, mp_pos=mp_pos[:M])
+    mp_pos = torch.cat([state.mp_pos, torch.zeros_like(state.mp_pos[:, :1])],
+                       1)
+    mp_pos[seq_index(ptgt), ptgt] = res.points
+    state = state._replace(kf_pose=kf_pose, mp_pos=mp_pos[:, :M])
 
     # erase outlier observations (reference Optimizer.cc:711-757)
-    bad = ((prob.obs_w > 0) & ~res.inlier).reshape(C, N)
+    bad = ((prob.obs_w > 0) & ~res.inlier).reshape(S, C, N)
     # a keyframe may hold two camera slots (see build_local_problem): OR
     # their outlier rows, as JAX's `.at[].max` does, with an integer sum
-    removal = torch.zeros((K_ + 1, N), dtype=torch.int32, device=cams.device
-                          ).index_add_(0, torch.where(cams >= 0, csafe, K_),
-                                       bad.to(torch.int32))
-    state = ops.remove_obs_global(state, removal[:K_] > 0)
+    removal = torch.zeros((S, K_ + 1, N), dtype=torch.int32,
+                          device=cams.device).scatter_add_(
+        1, torch.where(cams >= 0, csafe, K_)[..., None].expand(S, C, N),
+        bad.to(torch.int32))
+    state = ops.remove_obs_global(state, removal[:, :K_] > 0)
     if return_lam:
         return state, res.lam
     return state
@@ -228,7 +246,9 @@ def global_ba(state: MapState, cfg: SLAMConfig, n_outer: int = 10,
     mir_ok = mir_ok & active[okf.clamp(min=0), okp.clamp(min=0)]
     pt_obs_r = torch.where(mir_ok, r_idx, -1)
     member = mask_from_ids(r_idx, mir_ok, K_ * N)
-    w = torch.where(active, _obs_weight(state, cams, cfg), 0.0).reshape(-1)
+    inv_sigma2 = (1.0 / cfg.orb.scale_factor ** 2) ** state.kf_octave.to(
+        torch.float32)
+    w = torch.where(active, inv_sigma2, 0.0).reshape(-1)
     w = torch.where(member, w, 0.0)
     prob = BAProblem(
         cam_pose=state.kf_pose, cam_var=cam_var,

@@ -28,7 +28,8 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
-from orb_slam2_tpu_torch.core import lie
+from orb_slam2_tpu_torch.core import lie, seqwise
+from orb_slam2_tpu_torch.map.state import seq_take
 
 
 class BAProblem(NamedTuple):
@@ -53,33 +54,46 @@ class BAResult(NamedTuple):
     lam: torch.Tensor        # final LM damping (chunked resume)
 
 
-def _residuals(prob: BAProblem, cam_pose, points):
-    """e [R, 3], Jc [R, 3, 6], Jp [R, 3, 3] for all observations."""
-    T = cam_pose[prob.obs_cam]
-    pw = points[prob.obs_pid]
-    q = T[:, :4]
-    pc = lie.quat_rotate(q, pw) + T[:, 4:7]
-    x, y = pc[:, 0], pc[:, 1]
-    z = torch.clamp(pc[:, 2], min=1e-6)
-    fx, fy, cx, cy = prob.K[0], prob.K[1], prob.K[2], prob.K[3]
+def _residuals(prob: BAProblem, cam_pose, points, jac: bool = True,
+               per_seq: bool = False):
+    """e [..., R, 3] and, with `jac`, Jc [..., R, 3, 6], Jp [..., R, 3, 3]
+    for all observations.  With `per_seq` the problem carries a leading
+    sequence axis [S] on every field and the products run once a sequence
+    (`core.seqwise`)."""
+    if per_seq:
+        T = seq_take(cam_pose, prob.obs_cam)
+        pw = seq_take(points, prob.obs_pid)
+    else:
+        T = cam_pose[prob.obs_cam]
+        pw = points[prob.obs_pid]
+    q = T[..., :4]
+    pc = lie.quat_rotate(q, pw) + T[..., 4:7]
+    x, y = pc[..., 0], pc[..., 1]
+    z = torch.clamp(pc[..., 2], min=1e-6)
+    k = prob.K.unsqueeze(-2)                  # [1, 4] or [S, 1, 4]
+    fx, fy, cx, cy = k[..., 0], k[..., 1], k[..., 2], k[..., 3]
     u = fx * x / z + cx
     v = fy * y / z + cy
     is_st = prob.obs_ur >= 0
     ur = u - prob.bf / z
-    e = torch.stack([prob.obs_uv[:, 0] - u, prob.obs_uv[:, 1] - v,
+    e = torch.stack([prob.obs_uv[..., 0] - u, prob.obs_uv[..., 1] - v,
                      torch.where(is_st, prob.obs_ur - ur, 0.0)], -1)
+    if not jac:
+        return e
     iz = 1.0 / z
     iz2 = iz * iz
     zeros = torch.zeros_like(z)
     du = torch.stack([fx * iz, zeros, -fx * x * iz2], -1)
     dv = torch.stack([zeros, fy * iz, -fy * y * iz2], -1)
     dur = du + torch.stack([zeros, zeros, prob.bf * iz2], -1)
-    dproj = torch.stack([du, dv, torch.where(is_st[:, None], dur, 0.0)], 1)
+    dproj = torch.stack([du, dv, torch.where(is_st[..., None], dur, 0.0)],
+                        -2)
     eye = torch.eye(3, dtype=pc.dtype, device=pc.device).expand(
-        e.shape[0], 3, 3)
+        pc.shape[:-1] + (3, 3))
     dpc_dxi = torch.cat([eye, -lie.hat(pc)], -1)          # [R, 3, 6]
-    Jc = -torch.bmm(dproj, dpc_dxi)
-    Jp = -torch.bmm(dproj, lie.quat_to_matrix(q))
+    bmm = seqwise.bmm if per_seq else torch.bmm
+    Jc = -bmm(dproj, dpc_dxi)
+    Jp = -bmm(dproj, lie.quat_to_matrix(q))
     return e, Jc, Jp
 
 
@@ -198,114 +212,147 @@ def ba_solve_dense(prob: BAProblem, pt_obs_r: torch.Tensor, n_per_cam: int,
     n_per_cam)); `pt_obs_r` [P, D] lists each point's observation rows (-1
     none); obs_w is nonzero only for rows listed there.
 
+    A problem with a leading sequence axis on every field (cam_pose
+    [S, C, 7], ..., K [S, 4], pt_obs_r [S, P, D]; `lam0` a number or [S])
+    is S problems solved together, each with its own damping, costs and
+    early stop, each getting the bits of its S = 1 solve: the GEMMs, the LU
+    solve, the per-camera sums and the cost sums run once a problem
+    (`core.seqwise`); the result carries the axis too.
+
     With a process `group`, each rank holds a share of the observation
     rows: the camera-side sums, the Schur correction and the LM costs are
     summed over the group before the solve (the point side must be
     replicated or owner-complete on each rank)."""
+    if prob.cam_pose.dim() == 2:
+        one = lambda x: x[None] if isinstance(x, torch.Tensor) else x
+        res = _ba_solve_dense_seq(
+            BAProblem(*map(one, prob)), pt_obs_r[None], n_per_cam, n_outer,
+            huber_delta2, use_huber, one(lam0), chi2_th_mono,
+            chi2_th_stereo, chunk, group)
+        return BAResult(*(x[0] for x in res))
+    return _ba_solve_dense_seq(prob, pt_obs_r, n_per_cam, n_outer,
+                               huber_delta2, use_huber, lam0, chi2_th_mono,
+                               chi2_th_stereo, chunk, group)
+
+
+def _ba_solve_dense_seq(prob, pt_obs_r, n_per_cam, n_outer, huber_delta2,
+                        use_huber, lam0, chi2_th_mono, chi2_th_stereo, chunk,
+                        group) -> BAResult:
     dev = prob.points.device
-    C = prob.cam_pose.shape[0]
-    P = prob.points.shape[0]
+    S, C = prob.cam_pose.shape[:2]
+    P = prob.points.shape[1]
     assert P % chunk == 0 or P < chunk, (P, chunk)
     delta2 = torch.where(prob.obs_ur >= 0,
                          huber_delta2 * chi2_th_stereo / chi2_th_mono,
                          huber_delta2)
     act_pd = pt_obs_r >= 0
     rs = pt_obs_r.long().clamp(min=0)
-    obs_cam_pd = torch.where(act_pd, prob.obs_cam[rs], C)
+    obs_cam_pd = torch.where(act_pd, seq_take(prob.obs_cam, rs), C)
     n_chunks = max(P // chunk, 1)
     csz = min(chunk, P)
     cam_ids = torch.arange(C, device=dev)
     eye3 = torch.eye(3, device=dev)
     eye6 = torch.eye(6, device=dev)
-    var6 = prob.cam_var.repeat_interleave(6)
-    fixed_diag = torch.diag(torch.where(var6, 0.0, 1.0))
-    var_mask = var6[:, None] & var6[None, :]
+    var6 = prob.cam_var.repeat_interleave(6, dim=-1)
+    fixed_diag = torch.diag_embed(torch.where(var6, 0.0, 1.0))
+    var_mask = var6[:, :, None] & var6[:, None, :]
+    cvar = prob.cam_var[..., None]
 
     def seg_cam(vals):
-        return psum(vals.reshape((C, n_per_cam) + vals.shape[1:]).sum(1),
-                    group)
+        # a long float reduction (n_per_cam rows), whose kernel changes
+        # with the batch on the card: once a problem
+        return psum(seqwise.each(lambda v: v.reshape(
+            (C, n_per_cam) + v.shape[1:]).sum(1), vals), group)
 
     def seg_pt(vals):
-        g = vals[rs]
-        mask = act_pd.reshape(act_pd.shape + (1,) * (vals.dim() - 1))
-        return torch.where(mask, g, 0.0).sum(1)
+        g = seq_take(vals, rs)
+        mask = act_pd.reshape(act_pd.shape + (1,) * (vals.dim() - 2))
+        return torch.where(mask, g, 0.0).sum(2)
 
     def chi2_fn(cam_pose, points):
-        e, _, _ = _residuals(prob, cam_pose, points)
+        e = _residuals(prob, cam_pose, points, jac=False, per_seq=True)
         return torch.sum(e * e, -1) * prob.obs_w
 
     def lm_step(cam_pose, points, lam):
-        e, Jc, Jp = _residuals(prob, cam_pose, points)
+        e, Jc, Jp = _residuals(prob, cam_pose, points, per_seq=True)
         chi2 = torch.sum(e * e, -1) * prob.obs_w
         w_rob = _huber_w(chi2, delta2) if use_huber else torch.ones_like(chi2)
         w = prob.obs_w * w_rob
-        Jcw = Jc * w[:, None, None]
-        Hcc = seg_cam(torch.bmm(Jcw.transpose(1, 2), Jc))       # [C, 6, 6]
-        bc = seg_cam(torch.einsum('rij,ri->rj', Jcw, e))
-        Jpw = Jp * w[:, None, None]
-        Hpp = seg_pt(torch.bmm(Jpw.transpose(1, 2), Jp))        # [P, 3, 3]
-        bp = seg_pt(torch.einsum('rij,ri->rj', Jpw, e))
-        U = torch.bmm(Jcw.transpose(1, 2), Jp)                  # [R, 6, 3]
+        Jcw = Jc * w[..., None, None]
+        Hcc = seg_cam(seqwise.bmm(Jcw.transpose(-1, -2), Jc))   # [S, C, 6, 6]
+        bc = seg_cam(seqwise.einsum('rij,ri->rj', Jcw, e))
+        Jpw = Jp * w[..., None, None]
+        Hpp = seg_pt(seqwise.bmm(Jpw.transpose(-1, -2), Jp))    # [S, P, 3, 3]
+        bp = seg_pt(seqwise.einsum('rij,ri->rj', Jpw, e))
+        U = seqwise.bmm(Jcw.transpose(-1, -2), Jp)              # [S, R, 6, 3]
 
-        Hpp_inv = _inv3x3(Hpp + lam * eye3)
-        Hpp_inv = torch.where(prob.pt_var[:, None, None], Hpp_inv, 0.0)
+        Hpp_inv = _inv3x3(Hpp + lam[:, None, None, None] * eye3)
+        Hpp_inv = torch.where(prob.pt_var[..., None, None], Hpp_inv, 0.0)
         L = _chol3x3(Hpp_inv)
-        Z = torch.bmm(U, L[prob.obs_pid])                       # [R, 6, 3]
-        Z_pd = torch.where(act_pd[..., None, None], Z[rs], 0.0)
+        Z = seqwise.bmm(U, seq_take(L, prob.obs_pid))           # [S, R, 6, 3]
+        Z_pd = torch.where(act_pd[..., None, None], seq_take(Z, rs), 0.0)
 
-        S_corr = torch.zeros((C * 6, C * 6), device=dev)
+        S_corr = torch.zeros((S, C * 6, C * 6), device=dev)
         for i in range(n_chunks):
-            oc = obs_cam_pd[i * csz:(i + 1) * csz]
-            zz = Z_pd[i * csz:(i + 1) * csz]
+            oc = obs_cam_pd[:, i * csz:(i + 1) * csz]
+            zz = Z_pd[:, i * csz:(i + 1) * csz]
             onehot = (oc[..., None] == cam_ids).to(torch.float32)
-            G = torch.einsum('pdc,pdjl->plcj', onehot, zz)
-            Gm = G.reshape(-1, C * 6)
-            S_corr = S_corr + Gm.T @ Gm
+            # one nonzero term a sum (a point has one row a camera slot):
+            # exact in any order, so one einsum for all S
+            G = torch.einsum('spdc,spdjl->splcj', onehot, zz)
+            Gm = G.reshape(S, -1, C * 6)
+            S_corr = S_corr + seqwise.each(lambda m: m.T @ m, Gm)
 
-        y = torch.einsum('pkl,pl->pk', Hpp_inv, bp)
-        yb = torch.einsum('rjk,rk->rj', U, y[prob.obs_pid])
+        y = seqwise.einsum('pkl,pl->pk', Hpp_inv, bp)
+        yb = seqwise.einsum('rjk,rk->rj', U, seq_take(y, prob.obs_pid))
         rhs = bc - seg_cam(yb)
-        rhs = torch.where(prob.cam_var[:, None], rhs, 0.0)
+        rhs = torch.where(cvar, rhs, 0.0)
 
         S_corr = psum(S_corr, group)
-        Hcc_big = torch.zeros((C, 6, C, 6), device=dev)
-        Hcc_big[cam_ids, :, cam_ids, :] = Hcc + lam * eye6
-        S = Hcc_big.reshape(C * 6, C * 6) - S_corr
-        S = torch.where(var_mask, S, 0.0) + fixed_diag
-        dx = torch.linalg.solve_ex(S, -rhs.reshape(-1))[0].reshape(C, 6)
-        dx = torch.where(prob.cam_var[:, None], dx, 0.0)
+        Hcc_big = torch.zeros((S, C, 6, C, 6), device=dev)
+        Hcc_big.diagonal(0, 1, 3).copy_(
+            (Hcc + lam[:, None, None, None] * eye6).permute(0, 2, 3, 1))
+        S_mat = Hcc_big.reshape(S, C * 6, C * 6) - S_corr
+        S_mat = torch.where(var_mask, S_mat, 0.0) + fixed_diag
+        dx = seqwise.each(lambda a, b: torch.linalg.solve_ex(a, b)[0],
+                          S_mat, -rhs.reshape(S, -1)).reshape(S, C, 6)
+        dx = torch.where(cvar, dx, 0.0)
 
-        xg = dx[obs_cam_pd.clamp(0, C - 1)]
-        U_pd = torch.where(act_pd[..., None, None], U[rs], 0.0)
-        s = torch.einsum('pdjl,pdj->pl', U_pd, xg)
-        dp = torch.einsum('pkl,pl->pk', Hpp_inv, -bp - s)
-        dp = torch.where(prob.pt_var[:, None], dp, 0.0)
+        xg = seq_take(dx, obs_cam_pd.clamp(0, C - 1))
+        U_pd = torch.where(act_pd[..., None, None], seq_take(U, rs), 0.0)
+        s = seqwise.einsum('pdjl,pdj->pl', U_pd, xg)
+        dp = seqwise.einsum('pkl,pl->pk', Hpp_inv, -bp - s)
+        dp = torch.where(prob.pt_var[..., None], dp, 0.0)
 
-        new_cam = lie.se3_retract(cam_pose, dx)
-        new_cam = torch.where(prob.cam_var[:, None], new_cam, cam_pose)
+        new_cam = lie.se3_retract(cam_pose, dx, per_seq=True)
+        new_cam = torch.where(cvar, new_cam, cam_pose)
         new_points = points + dp
         new_chi2 = chi2_fn(new_cam, new_points)
         new_rob = _huber_w(new_chi2, delta2) if use_huber else 1.0
-        new_cost = psum(torch.sum(new_chi2 * new_rob), group)
-        old_cost = psum(torch.sum(chi2 * w_rob), group)
-        ok = (new_cost < old_cost) & torch.all(torch.isfinite(new_cam)) & \
-            torch.all(torch.isfinite(new_points))
-        cam_pose = torch.where(ok, new_cam, cam_pose)
-        points = torch.where(ok, new_points, points)
+        new_cost = psum(seqwise.total(new_chi2 * new_rob), group)
+        old_cost = psum(seqwise.total(chi2 * w_rob), group)
+        ok = (new_cost < old_cost) & \
+            torch.isfinite(new_cam).flatten(1).all(1) & \
+            torch.isfinite(new_points).flatten(1).all(1)
+        okb = ok[:, None, None]
+        cam_pose = torch.where(okb, new_cam, cam_pose)
+        points = torch.where(okb, new_points, points)
         lam = torch.clamp(torch.where(ok, lam * 0.3, lam * 5.0), 1e-9, 1e6)
         return cam_pose, points, lam, torch.where(ok, new_cost, old_cost), ok
 
     # early-stopping LM (stop once an accepted step improves the robust cost
-    # by < 0.1% after the third iteration), as masked updates
+    # by < 0.1% after the third iteration), as masked updates, each problem
+    # on its own
     cam_pose, points = prob.cam_pose, prob.points
-    lam = _scalar(lam0, dev)
-    prev_cost = torch.full((), float("inf"), device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
+    lam = _scalar(lam0, dev).expand(S)
+    prev_cost = torch.full((S,), float("inf"), device=dev)
+    done = torch.zeros(S, dtype=torch.bool, device=dev)
     for i in range(n_outer):
         c2, p2, l2, cost_after, ok = lm_step(cam_pose, points, lam)
         run = ~done
-        cam_pose = torch.where(run, c2, cam_pose)
-        points = torch.where(run, p2, points)
+        runb = run[:, None, None]
+        cam_pose = torch.where(runb, c2, cam_pose)
+        points = torch.where(runb, p2, points)
         lam = torch.where(run, l2, lam)
         rel = (prev_cost - cost_after) / torch.clamp(prev_cost, min=1e-9)
         prev_cost = torch.where(run, cost_after, prev_cost)
@@ -354,7 +401,7 @@ def ba_solve(prob: BAProblem, n_outer: int = 10, n_cg: int = 40,
     cvar = prob.cam_var[:, None]
 
     def chi2_fn(cam_pose, points):
-        e, _, _ = _residuals(prob, cam_pose, points)
+        e = _residuals(prob, cam_pose, points, jac=False)
         return torch.sum(e * e, -1) * prob.obs_w
 
     def lm_step(cam_pose, points, lam):

@@ -1,16 +1,15 @@
-"""Device-side control flow: `cond` and `switch`, the port's counterparts of
-`lax.cond` and `lax.switch` (the JAX step makes every per-frame decision
-with them, inside one program).
+"""Device-side control flow: `cond`, the port's counterpart of `lax.cond`
+(the JAX step makes every per-frame decision with `lax.cond` /
+`lax.switch`, inside one program; a switch here is one `cond` for each
+distinct branch function, as `system.mapping_stage` runs its stages).
 
-Eagerly (on the CPU, and on the card outside a capture) a helper reads its
-predicate or index once and runs the chosen branch: that read, made by
-`read_pred` with `in_predicate_read()` true, is the only host read the
-helpers make.  While a CUDA graph is being captured (`capturing`), every
-branch is captured into the body of a CUDA graph conditional IF node
+Eagerly (on the CPU, and on the card outside a capture) `cond` reads its
+predicate once and runs the chosen branch: that read, made by `read_pred`
+with `in_predicate_read()` true, is the only host read the helper makes.
+While a CUDA graph is being captured (`capturing`), every branch is
+captured into the body of a CUDA graph conditional IF node
 (csrc/graph_cond.cu) whose condition the card sets from the predicate at
 replay, so the branch is chosen on the device and the host reads nothing.
-A `switch` is a chain of IF nodes on `index == i`, one body per distinct
-branch function.
 
 Results under capture live at fixed addresses.  When a branch returns the
 structure of its operands (a carry, as `(state, ts)`), each result field
@@ -20,7 +19,7 @@ donated argument of a jitted JAX function is.  `identity` as a branch
 captures nothing.  Other results (a few small tensors) are cloned by the
 first branch into fresh tensors that the other branches copy into.
 
-`warmup()` makes every helper run all of its branches eagerly (and return
+`warmup()` makes every `cond` run both of its branches eagerly (and return
 the chosen one's result), so that a branch the data did not take has still
 loaded its kernels and filled its caches before a capture.  `Count` is an
 event count summed on the device in place, so that it also counts under
@@ -32,7 +31,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import gc
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional
 
 import torch
 import torch.utils._pytree as pytree
@@ -55,7 +54,7 @@ def identity(*operands):
 
 
 def read_pred(x) -> int:
-    """The helpers' one host read: the predicate or index `x` as an int."""
+    """The helper's one host read: the predicate `x` as an int."""
     global _pred_read
     if not isinstance(x, torch.Tensor):
         return int(x)
@@ -78,7 +77,7 @@ def capturing() -> bool:
 
 @contextlib.contextmanager
 def warmup():
-    """Run every branch of every helper (eagerly), returning the chosen
+    """Run both branches of every `cond` (eagerly), returning the chosen
     one's result."""
     global _warmup
     old, _warmup = _warmup, True
@@ -104,7 +103,7 @@ def sync_allowed(device: torch.device):
 
 
 # ---------------------------------------------------------------------------
-# the helpers
+# the branch
 # ---------------------------------------------------------------------------
 
 def cond(pred, true_fn: Callable, false_fn: Callable, operands=()):
@@ -120,32 +119,6 @@ def cond(pred, true_fn: Callable, false_fn: Callable, operands=()):
         outs = [fn(*operands) for fn in (true_fn, false_fn)]
         return outs[0] if read_pred(pred) else outs[1]
     return (true_fn if read_pred(pred) else false_fn)(*operands)
-
-
-def switch(index, branches: Sequence[Callable], operands=()):
-    """`branches[clamp(index, 0, n - 1)](*operands)` (lax.switch)."""
-    n = len(branches)
-    if not isinstance(index, torch.Tensor):
-        return branches[min(max(int(index), 0), n - 1)](*operands)
-    if _capture is not None:
-        idx = index.clamp(0, n - 1)
-        fns, preds = [], []
-        for i, fn in enumerate(branches):     # one body per distinct fn
-            hit = idx == i
-            if fn in fns:
-                j = fns.index(fn)
-                preds[j] = preds[j] | hit
-            else:
-                fns.append(fn)
-                preds.append(hit)
-        return _capture.branches(preds, fns, operands)
-    if _warmup:
-        outs = {}
-        for fn in branches:
-            if fn not in outs:
-                outs[fn] = fn(*operands)
-        return outs[branches[min(max(read_pred(index), 0), n - 1)]]
-    return branches[min(max(read_pred(index), 0), n - 1)](*operands)
 
 
 # ---------------------------------------------------------------------------
@@ -225,7 +198,7 @@ class _Capture:
                     carry = True
                     self._copy(leaves, ins)
                 elif carry or (out_spec is not None and spec != out_spec):
-                    raise ValueError("cond/switch branches return different "
+                    raise ValueError("cond branches return different "
                                      "structures")
                 elif homes is None:
                     homes = [t.clone() if isinstance(t, torch.Tensor) else t
@@ -235,7 +208,7 @@ class _Capture:
                     self._copy(leaves, homes)
         if carry:
             if homes is not None:
-                raise ValueError("cond/switch branches return different "
+                raise ValueError("cond branches return different "
                                  "structures")
             return tree
         return pytree.tree_unflatten(homes, out_spec)
@@ -285,8 +258,8 @@ class _Capture:
 
 @contextlib.contextmanager
 def capture(graph: torch.cuda.CUDAGraph, device: torch.device):
-    """Capture `graph` (torch.cuda.graph, global capture mode) with the
-    helpers building IF nodes.  A failure raises; nothing falls back to
+    """Capture `graph` (torch.cuda.graph, global capture mode) with `cond`
+    building IF nodes.  A failure raises; nothing falls back to
     eager execution."""
     global _capture
     if _capture is not None:
@@ -393,12 +366,19 @@ class Count:
     def __init__(self):
         self._t = {}
 
-    def add(self, x: torch.Tensor):
-        t = self._t.get(x.device)
+    def _of(self, device: torch.device) -> torch.Tensor:
+        t = self._t.get(device)
         if t is None:
-            t = self._t[x.device] = register(
-                torch.zeros((), dtype=torch.int64, device=x.device))
-        t.add_(x.to(torch.int64))
+            t = self._t[device] = register(
+                torch.zeros((), dtype=torch.int64, device=device))
+        return t
+
+    def add(self, x: torch.Tensor):
+        self._of(x.device).add_(x.to(torch.int64))
+
+    def tick(self, device: torch.device):
+        """Count one event (a scalar add: no host-to-device copy)."""
+        self._of(device).add_(1)
 
     def reset(self):
         for t in self._t.values():

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from orb_slam2_tpu_torch.core import seqwise
+
 _EPS = 1e-8
 
 
@@ -180,12 +182,14 @@ def se3_matrix(T: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, bottom], dim=-2)
 
 
-def _so3_left_jacobian(phi: torch.Tensor) -> torch.Tensor:
-    """SO3 left Jacobian J_l(phi), [..., 3, 3]."""
+def _so3_left_jacobian(phi: torch.Tensor, per_seq: bool = False
+                       ) -> torch.Tensor:
+    """SO3 left Jacobian J_l(phi), [..., 3, 3] (`per_seq`: the leading
+    axis is a sequence axis, see `se3_retract`)."""
     theta = _safe_norm(phi)
     th2 = theta * theta
     W = hat(phi)
-    W2 = W @ W
+    W2 = seqwise.each(lambda w: w @ w, W) if per_seq else W @ W
     small = theta < 1e-5
     a = torch.where(small, 0.5 - th2 / 24.0,
                     (1.0 - torch.cos(theta)) / torch.clamp(th2, min=_EPS))
@@ -195,12 +199,13 @@ def _so3_left_jacobian(phi: torch.Tensor) -> torch.Tensor:
     return eye + a[..., None, None] * W + b[..., None, None] * W2
 
 
-def se3_exp(xi: torch.Tensor) -> torch.Tensor:
+def se3_exp(xi: torch.Tensor, per_seq: bool = False) -> torch.Tensor:
     """Tangent [..., 6] = [rho, phi] -> SE3 (t = J_l(phi) rho)."""
     rho, phi = xi[..., :3], xi[..., 3:6]
     q = so3_exp(phi)
-    J = _so3_left_jacobian(phi)
-    t = torch.einsum('...ij,...j->...i', J, rho)
+    J = _so3_left_jacobian(phi, per_seq)
+    ein = seqwise.einsum if per_seq else torch.einsum
+    t = ein('...ij,...j->...i', J, rho)
     return se3(q, t)
 
 
@@ -211,9 +216,13 @@ def se3_log(T: torch.Tensor) -> torch.Tensor:
     return torch.cat([rho, phi], dim=-1)
 
 
-def se3_retract(T: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
-    """Left-multiplied exp-map update exp(xi) * T (g2o VertexSE3Expmap)."""
-    return se3_compose(se3_exp(xi), T)
+def se3_retract(T: torch.Tensor, xi: torch.Tensor,
+                per_seq: bool = False) -> torch.Tensor:
+    """Left-multiplied exp-map update exp(xi) * T (g2o VertexSE3Expmap).
+    With `per_seq`, T [S, ..., 7] and xi [S, ..., 6] carry a sequence axis
+    and the 3x3 products run once a sequence (`core.seqwise`), so that a
+    sequence gets the bits of its S = 1 call."""
+    return se3_compose(se3_exp(xi, per_seq), T)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 // CUDA graph conditional IF nodes for stream capture: the device side of
-// core/control.py's `cond` and `switch` under capture (the counterpart of
-// `lax.cond` / `lax.switch` inside a jitted JAX program).
+// core/control.py's `cond` under capture (the counterpart of `lax.cond`
+// inside a jitted JAX program).
 //
 // `graph_cond_begin_if(pred, parent, child)` adds an IF node to the
 // graph that `parent` is capturing into, with a one-thread kernel before it

@@ -4,25 +4,28 @@ orb_slam2_tpu/distributed/dp.py).
 
 The JAX package vmaps its per-frame program over a leading sequence axis
 and jits it.  Here the states are the same NamedTuples with a leading [S]
-axis on every field, allocated once.  One step extracts the S images in
-one batched atlas program (one FAST launch over 8·S planes) and tracks
-the S sequences in one batched pass on the stacked state itself
-(`tracking.build_track_step`: every tracking op once over the [S] axis,
-one pose-LM launch for all S problems at a time; the motion model and the
-reference-keyframe match each under a device branch on "some sequence
-takes it", each sequence keeping its own branch's values, as JAX's vmap
-of a `lax.cond` selects).  Then each sequence's keyframe insertion and
-mapping stage run in turn on its own views of the stacked state, every
-decision a device branch (`core.control.cond` / `switch`, JAX's
-`lax.cond` / `lax.switch`), each result written back into the views:
-under vmap JAX would run the insertion and all six stages for every
-sequence at every step.  Eagerly (on the CPU, and with `capture=False`)
-the step's only host reads are the helpers' marked predicate reads.  On
-the card `DPProgram` captures the step as one CUDA graph at its first
-step and replays it, so the host reads nothing from `init` to the end of
-the run: the tracking pass and the S insertion-and-stage bodies at the
-graph's top level (every sequence is active on every step), their
-branches IF nodes.
+axis on every field, allocated once, and every op of the step runs once
+over that axis, as under JAX's vmap: one step extracts the S images in
+one batched atlas program (one FAST launch over 8·S planes), tracks the S
+sequences in one batched pass (`tracking.build_track_step`, one pose-LM
+launch for all S problems at a time), inserts the keyframes of the
+sequences that need one in one batched call (`system.insert_kf`) and
+advances every pending integration by one batched call a stage group
+(`system.mapping_stage`: triangulate, fuse, a BA chunk, cull), on a
+dense batch of the sequences at that stage (`system.on_sequences`: the
+next power of two of their count, all S once that reaches S).  Where JAX
+branches with `lax.cond` / `lax.switch`, which its vmap turns into a
+select, a branch here runs once for all S under a device branch
+(`core.control.cond`) on "some sequence takes it", and each sequence
+keeps its own branch's values (`map.state.seq_where`), the values it gets
+alone: an op whose kernel depends on the batch (a cuBLAS product, the LU
+solve, a long float sum) runs once a sequence (`core.seqwise`), so each
+sequence's bits are those of its S = 1 run.  `init` is one batched call
+too.  Eagerly (on the CPU, and with `capture=False`) the step's only host
+reads are the helpers' marked predicate reads.  On the card `DPProgram`
+captures the step as one CUDA graph at its first step and replays it, so
+the host reads nothing from `init` to the end of the run; the branches
+are IF nodes.
 
 The sequence axis needs no communication: `shard_batch` gives rank r of a
 process group its own block of sequences, `build_sharded_step` steps it
@@ -39,7 +42,7 @@ closing or relocalisation.
 from __future__ import annotations
 
 import time
-from typing import List, Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
@@ -49,7 +52,7 @@ from torch.profiler import record_function
 from orb_slam2_tpu_torch import resolve_device
 from orb_slam2_tpu_torch.config import RGBD, SLAMConfig
 from orb_slam2_tpu_torch.core import control, lie
-from orb_slam2_tpu_torch.map.state import MapState, empty_map
+from orb_slam2_tpu_torch.map.state import MapState, empty_map, seq_where
 from orb_slam2_tpu_torch.pipeline import frame as frame_mod
 from orb_slam2_tpu_torch.pipeline import init as init_mod
 from orb_slam2_tpu_torch.pipeline import system, tracking
@@ -71,29 +74,12 @@ _COMM_PREFIXES = ("c10d::", "gloo:", "nccl", "record_param_comms")
 _COLLECTIVES = ("allreduce", "allgather", "reducescatter", "broadcast",
                 "alltoall", "send", "recv")
 
-Views = List[Tuple[MapState, TrackState]]
-
-
-def _take(tree, s: int):
-    """Sequence s of a stacked NamedTuple (views)."""
-    return type(tree)(*(x[s] for x in tree))
-
-
-def _sequence_views(state: MapState, ts: TrackState) -> Views:
-    """Each sequence's (MapState, TrackState) as views of the stacked
-    state: a body writes its results into them with `system.assign`,
-    which tells a field apart from its own by identity, so take them once
-    and keep them."""
-    return [(_take(state, s), _take(ts, s)) for s in range(ts.T.shape[0])]
-
 
 def _bodies(cfg: SLAMConfig, dev: torch.device):
-    """(init_body, step_body) over the stacked (state, ts) and their
-    per-sequence views, in place:
+    """(init_body, step_body) over the stacked (state, ts), in place:
 
-        init_body(views, img [S, H, W], depth [S, H, W])
-        step_body(stacked, views, img, depth, fid [S], t [S],
-                  hud [S, HUD_LEN])
+        init_body((state, ts), img [S, H, W], depth [S, H, W])
+        step_body((state, ts), img, depth, fid [S], t [S], hud [S, HUD_LEN])
     """
     if cfg.sensor != RGBD:
         raise ValueError("the DP driver batches RGB-D sequences")
@@ -110,52 +96,45 @@ def _bodies(cfg: SLAMConfig, dev: torch.device):
             return type(one)(*(x[None] for x in one))
         return frame_fns[S](img, depth, fid, t)
 
-    def insert(frame, cur_pids):
-        def body(st, tt):
-            with record_function(PHASE + "insert"):
-                return system.insert_kf(st, tt, frame, cur_pids, cfg)
-        return body
-
-    def stage(st, tt):
-        with record_function(PHASE + "stage"):
-            return system.mapping_stage(st, tt, cfg, N_STAGES)
-
-    def init_body(views: Views, img, depth):
+    def init_body(stacked, img, depth):
+        state, ts = stacked
         S = img.shape[0]
         fr = frames(img, depth,
                     torch.zeros(S, dtype=torch.int32, device=img.device),
                     torch.zeros(S, dtype=torch.float32, device=img.device))
-        for s, (st, tt) in enumerate(views):
-            frame = _take(fr, s)
+        enough = fr.n >= cfg.tracking.stereo_init_min_kps
 
-            def do(a, b, frame=frame):
-                a, b, _ = init_mod.stereo_initialize(a, b, frame, cfg)
-                return a, record_traj(a, b, frame, True)
+        def do(st, tt):
+            st1, tt1, _ = init_mod.stereo_initialize(st, tt, fr, cfg)
+            return seq_where(enough, (st1, record_traj(st1, tt1, fr, True)),
+                             (st, tt))
 
-            enough = frame.n >= cfg.tracking.stereo_init_min_kps
-            st1, tt1 = control.cond(enough, do, control.identity, (st, tt))
-            system.assign(st, st1)
-            system.assign(tt, tt1)
-
-    def step_body(stacked, views: Views, img, depth, fid, t, hud):
-        with record_function(PHASE + "extract"):
-            fr = frames(img, depth, fid, t)
-        state, ts = stacked
-        with record_function(PHASE + "track"):
-            st1, tt1, cur_pids, h = track(state, ts, fr)
+        st1, tt1 = control.cond(enough.any(), do, control.identity,
+                                (state, ts))
         system.assign(state, st1)
         system.assign(ts, tt1)
+
+    def step_body(stacked, img, depth, fid, t, hud):
+        state, ts = stacked
+        with record_function(PHASE + "extract"):
+            fr = frames(img, depth, fid, t)
+        with record_function(PHASE + "track"):
+            st, tt, cur_pids, h = track(state, ts, fr)
         hud.copy_(h)
-        busy_early = (ts.map_kf >= 0) & (ts.map_stage <= 1)
-        need = (hud[:, HUD_NEED_KF] > 0) & ~busy_early
-        for s, (st, tt) in enumerate(views):
-            frame = _take(fr, s)
-            st1, tt1 = control.cond(need[s], insert(frame, cur_pids[s]),
-                                    control.identity, (st, tt))
-            st1, tt1 = control.cond(tt1.map_kf >= 0, stage,
-                                    control.identity, (st1, tt1))
-            system.assign(st, st1)
-            system.assign(tt, tt1)
+        busy_early = (tt.map_kf >= 0) & (tt.map_stage <= 1)
+        need = (h[:, HUD_NEED_KF] > 0) & ~busy_early
+
+        def insert(a, b):
+            return seq_where(need, system.insert_kf(a, b, fr, cur_pids, cfg,
+                                                    need), (a, b))
+
+        with record_function(PHASE + "insert"):
+            st, tt = control.cond(need.any(), insert, control.identity,
+                                  (st, tt))
+        with record_function(PHASE + "stage"):
+            st, tt = system.mapping_stage(st, tt, cfg, N_STAGES)
+        system.assign(state, st)
+        system.assign(ts, tt)
 
     return init_body, step_body
 
@@ -176,22 +155,15 @@ def build_dp_step(cfg: SLAMConfig, device=None):
     runs the same step captured."""
     dev = resolve_device(device)
     init_body, step_body = _bodies(cfg, dev)
-    last = {}
-
-    def views_of(state, ts):
-        if last.get("of", (None, None))[0] is not state or \
-                last["of"][1] is not ts:
-            last.update(of=(state, ts), views=_sequence_views(state, ts))
-        return last["views"]
 
     def init_fn(state, ts, img, depth):
-        init_body(views_of(state, ts), img, depth)
+        init_body((state, ts), img, depth)
         return state, ts
 
     def step_fn(state, ts, img, depth, fid, t):
         hud = torch.empty((img.shape[0], HUD_LEN), dtype=torch.int32,
                           device=img.device)
-        step_body((state, ts), views_of(state, ts), img, depth, fid, t, hud)
+        step_body((state, ts), img, depth, fid, t, hud)
         return state, ts, hud
 
     return init_fn, step_fn
@@ -225,7 +197,6 @@ class DPProgram:
         self.capture = cuda if capture is None else capture
         self._init_body, self._step_body = _bodies(cfg, dev)
         self._state, self._ts = make_batch_states(cfg, S, dev)
-        self._views = _sequence_views(self._state, self._ts)
         H, W = cfg.camera.height, cfg.camera.width
         self._img = torch.zeros((S, H, W), device=dev)
         self._depth = torch.zeros((S, H, W), device=dev)
@@ -271,15 +242,15 @@ class DPProgram:
         """Initialise each sequence on its first frame (eagerly, once)."""
         self._put(img, depth, 0, 0.0)
         with control.sync_allowed(self.device):
-            self._init_body(self._views, self._img, self._depth)
+            self._init_body((self._state, self._ts), self._img, self._depth)
 
     def step(self, img, depth, fid, t):
         """One frame of every sequence: images and depth maps [S, H, W],
         frame ids and timestamps [S] (or one number for all)."""
         self._put(img, depth, fid, t)
         if not self.capture:
-            self._step_body((self._state, self._ts), self._views, self._img,
-                            self._depth, self._fid, self._t, self._hud)
+            self._step_body((self._state, self._ts), self._img, self._depth,
+                            self._fid, self._t, self._hud)
         else:
             if self._graph is None:
                 self._graph = self._capture_program()
@@ -293,14 +264,12 @@ class DPProgram:
         back in place (`control.capture_program`: warmed up on copies of
         the state first; a failure raises)."""
         def run(on_copies: bool):
-            stacked, views, hud = (self._state, self._ts), self._views, \
-                self._hud
+            stacked, hud = (self._state, self._ts), self._hud
             if on_copies:
                 stacked = (system.clone(self._state), system.clone(self._ts))
-                views = _sequence_views(*stacked)
                 hud = hud.clone()
-            self._step_body(stacked, views, self._img, self._depth,
-                            self._fid, self._t, hud)
+            self._step_body(stacked, self._img, self._depth, self._fid,
+                            self._t, hud)
 
         t0 = time.perf_counter()
         g = control.capture_program(run, self.device)

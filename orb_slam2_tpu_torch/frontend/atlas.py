@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from orb_slam2_tpu_torch.config import ORBConfig
+from orb_slam2_tpu_torch.core import seqwise
 from orb_slam2_tpu_torch.frontend import orb, pyramid
 from orb_slam2_tpu_torch.frontend.extractor import Features, per_level_quota
 from orb_slam2_tpu_torch import resolve_device
@@ -85,12 +86,18 @@ def _para(l, c, r):
 
 def build_atlas_extractor(cfg: ORBConfig, height: int, width: int,
                           device=None, n_images: int = 1,
-                          return_atlas: bool = False):
+                          return_atlas: bool = False, frames: int = 1):
     """Return `extract(img)`, with its constants on `device` (CUDA unless
     the caller names one).
 
     n_images == 1: img [H, W]            -> Features (cap slots)
     n_images >= 2: img [n_images, H, W]  -> Features batched [n_images, cap]
+
+    The images are one frame (a stereo pair) or `frames = n_images` frames
+    (the dp step's S images).  The pyramid's resize matmuls and the
+    steered-BRIEF GEMM run once a frame: their shapes, and so cuBLAS's
+    kernels and the levels' and keypoint angles' rounding, are a frame's
+    whatever the batch (`core.seqwise`).
 
     With `return_atlas=True` it also returns the raw padded level atlas
     [n_images * L, Hp, Wp] (image-major, zero beyond each level), from which
@@ -100,6 +107,8 @@ def build_atlas_extractor(cfg: ORBConfig, height: int, width: int,
     L = cfg.n_levels
     B = n_images
     G = B * L
+    if frames not in (1, B):
+        raise ValueError(f"{B} images make one frame or {B}, not {frames}")
     quotas = per_level_quota(cfg.n_features, L, cfg.scale_factor)
     shapes = pyramid.level_shapes(height, width, L, cfg.scale_factor)
     maxq = max(quotas)
@@ -157,8 +166,10 @@ def build_atlas_extractor(cfg: ORBConfig, height: int, width: int,
             raise ValueError(f"expected an image batch of shape {want}, got "
                              f"{tuple(img.shape)}")
         # ---- pyramid (cascade, like ORBextractor.cc:1107), each level
-        # [H, W] or [B, H, W] ----
-        levels = pyramid.cascade(img, rs_w)
+        # [H, W] or [B, H, W]; resized once a frame (its two matmuls'
+        # shapes, and so their cuBLAS kernels, a frame's) ----
+        levels = pyramid.cascade(img, rs_w) if frames == 1 else \
+            seqwise.each(lambda x: tuple(pyramid.cascade(x, rs_w)), img)
         pad = lambda a: F.pad(a, (0, Wp - a.shape[-1], 0, Hp - a.shape[-2]))
         atlas = torch.stack([pad(lv) for lv in levels], -3
                             ).reshape(G, Hp, Wp)                 # [G, Hp, Wp]
@@ -247,7 +258,8 @@ def build_atlas_extractor(cfg: ORBConfig, height: int, width: int,
         Kk = B * cap
         patches = _slice_gather(blurred.reshape(G * Hp, Wp),
                                 gk * Hp + cyk - orb.HALF, cxk - orb.HALF, P, P)
-        allq = patches.reshape(Kk, P * P) @ brief_mat        # [K, Q*256 + 2]
+        allq = seqwise.each(lambda p: p @ brief_mat, patches.reshape(
+            frames, Kk // frames, P * P)).reshape(Kk, -1)   # [K, Q*256 + 2]
         ang = torch.atan2(allq[:, -1], allq[:, -2])
         qbin = torch.round(ang * (Q_BINS / (2.0 * np.pi))).to(torch.int64) \
             % Q_BINS

@@ -48,15 +48,18 @@ def per_level_quota(n_features: int, n_levels: int, scale: float) -> List[int]:
 
 
 def build_extractor(cfg: ORBConfig, height: int, width: int, device=None,
-                    n_images: int = 1, return_atlas: bool = False):
+                    n_images: int = 1, return_atlas: bool = False,
+                    frames: int = 1):
     """Return `extract(img [H, W] f32) -> Features` for a fixed image size
     (the level-atlas formulation, frontend/atlas.py), on `device`: CUDA
     unless the caller names one (raises without a card).  `n_images=2`
     batches a stereo pair ([2, H, W] -> Features [2, cap]);
-    `return_atlas=True` also returns the raw level atlas."""
+    `return_atlas=True` also returns the raw level atlas; `frames`: the
+    frames the images make (`build_atlas_extractor`)."""
     from orb_slam2_tpu_torch.frontend.atlas import build_atlas_extractor
     return build_atlas_extractor(cfg, height, width, device=device,
-                                 n_images=n_images, return_atlas=return_atlas)
+                                 n_images=n_images, return_atlas=return_atlas,
+                                 frames=frames)
 
 
 def _select_level(score: torch.Tensor, quota: int, border: int,

@@ -7,14 +7,19 @@ keypoint n of keyframe k — is the single source of truth; observation
 counts, covisibility and the spanning tree derive from it.
 
 Updates are functional: each returns a new MapState and leaves its input
-untouched.
+untouched.  The helpers below and the map ops (`map/ops.py`) are written
+over a leading sequence axis [S] on every field (the dp step's stacked
+states); one sequence's state goes through the same functions as S = 1
+(`one_or_many`).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
+import torch.utils._pytree as pytree
 
 from orb_slam2_tpu_torch.config import SLAMConfig
 
@@ -149,11 +154,53 @@ def count_ids(ids: torch.Tensor, ok: torch.Tensor, n: int,
 # per-sequence rows of a stacked state (a leading [S] axis on every field)
 # ---------------------------------------------------------------------------
 
+def one_or_many(fn):
+    """Let `fn`, written over a leading sequence axis [S] (a stacked
+    MapState first, then per-sequence tensors: keyframe ids [S], masks
+    [S, ...]), also take one sequence's state and tensors (no leading
+    axis, keyframe ids as ints or 0-d tensors, as the session holds them):
+    run it as S = 1 and return its results without the axis, every field
+    it did not change as the caller's own tensor (fixed storage matches
+    fields by identity)."""
+    @functools.wraps(fn)
+    def wrapped(state, *args, **kwargs):
+        if state.next_kf.dim() == 1:
+            return fn(state, *args, **kwargs)
+        ins, spec = pytree.tree_flatten(((state,) + args, kwargs))
+        one = [x[None] if isinstance(x, torch.Tensor) else x for x in ins]
+        back = {id(b): a for a, b in zip(ins, one)
+                if isinstance(a, torch.Tensor)}
+        a, kw = pytree.tree_unflatten(one, spec)
+        out = fn(*a, **kw)
+        return pytree.tree_map(
+            lambda x: back.get(id(x), x[0]) if isinstance(x, torch.Tensor)
+            else x, out)
+    return wrapped
+
+
+_aranges = {}
+
+
 def seq_index(idx: torch.Tensor) -> torch.Tensor:
-    """arange(S) shaped [S, 1, ...] to broadcast against idx [S, ...]."""
+    """arange(S) shaped [S, 1, ...] to broadcast against idx [S, ...]
+    (made once per S and device, outside a graph capture)."""
     S = idx.shape[0]
-    return torch.arange(S, device=idx.device).view((S,) + (1,) *
-                                                   (idx.dim() - 1))
+    key = (S, idx.device)
+    ar = _aranges.get(key)
+    if ar is None:
+        ar = torch.arange(S, device=idx.device)
+        if not (idx.is_cuda and torch.cuda.is_current_stream_capturing()):
+            _aranges[key] = ar
+    return ar.view((S,) + (1,) * (idx.dim() - 1))
+
+
+def seq_ids(k, S: int, device) -> torch.Tensor:
+    """A keyframe id per sequence as int64 [S]: from [S], [S, 1], a 0-d or
+    one-element tensor (the same id for every sequence) or an int."""
+    if isinstance(k, torch.Tensor):
+        k = k.long()
+        return k.reshape(S) if k.numel() == S else k.reshape(()).expand(S)
+    return torch.full((S,), k, dtype=torch.int64, device=device)
 
 
 def seq_take(t: torch.Tensor, *idx: torch.Tensor) -> torch.Tensor:
@@ -163,50 +210,53 @@ def seq_take(t: torch.Tensor, *idx: torch.Tensor) -> torch.Tensor:
     return t[(seq_index(idx[0]),) + tuple(i.long() for i in idx)]
 
 
-def seq_put_row(t: torch.Tensor, k: torch.Tensor,
-                v: torch.Tensor) -> torch.Tensor:
+def seq_put_row(t: torch.Tensor, k: torch.Tensor, v) -> torch.Tensor:
     """A copy of the stacked t [S, R, ...] with row k[s] of sequence s set
-    to v[s] [S, ...]: the per-sequence `put_row`."""
+    to v[s] [S, ...] (or a Python scalar, broadcast to the rows), without
+    a host read."""
+    if not isinstance(v, torch.Tensor):
+        v = torch.full(k.shape + t.shape[2:], v, dtype=t.dtype,
+                       device=t.device)
     return t.index_put((seq_index(k), k.long()), v.to(t.dtype))
 
 
-def row(t: torch.Tensor, k) -> torch.Tensor:
-    """t[k] for an int or a one-element integer tensor k.  Indexing with a
-    0-d tensor reads it on the host; a one-element index does not."""
-    if isinstance(k, torch.Tensor):
-        return t[k.reshape(1).long()][0]
-    return t[k]
+def seq_put_col(t: torch.Tensor, k: torch.Tensor, v) -> torch.Tensor:
+    """A copy of the stacked t [S, R, C] with column k[s] of sequence s
+    set to v[s] [S, R] (or a scalar)."""
+    return seq_put_row(t.transpose(1, 2), k, v).transpose(1, 2)
 
 
-def put_row(t: torch.Tensor, k, v, dim: int = 0) -> torch.Tensor:
-    """A copy of t with its row k along `dim` set to v (a tensor or a
-    Python scalar, broadcast to the row), for an int or a one-element
-    integer tensor k, without a host read."""
-    shape = t.shape[:dim] + (1,) + t.shape[dim + 1:]
-    if isinstance(v, torch.Tensor):
-        v = v.to(t.dtype).unsqueeze(dim).expand(shape)
-    else:
-        v = torch.full(shape, v, dtype=t.dtype, device=t.device)
-    if isinstance(k, torch.Tensor):
-        idx = k.reshape(1).long()
-    else:
-        idx = torch.full((1,), k, dtype=torch.int64, device=t.device)
-    return t.index_copy(dim, idx, v)
+def seq_where(mask: torch.Tensor, new, old):
+    """Per sequence, `new`'s fields where mask [S] holds and `old`'s
+    elsewhere (trees of the same structure with a leading [S] axis); a
+    field whose tensor `new` did not replace stays `old`'s own.  At S = 1
+    `new` itself: a branch under `control.cond` on `mask.any()` runs only
+    when its one sequence takes it."""
+    if mask.shape[0] == 1:
+        return new
+
+    def sel(a, b):
+        if a is b or not isinstance(a, torch.Tensor):
+            return b
+        return torch.where(mask.view((-1,) + (1,) * (a.dim() - 1)), a, b)
+    return pytree.tree_map(sel, new, old)
 
 
 def last_writer(idx: torch.Tensor, ok: torch.Tensor, n: int) -> torch.Tensor:
-    """[R] bool: row r is the last of the ok rows that target idx[r].
+    """[..., R] bool: row r is the last of the ok rows that target idx[r]
+    (along the last axis: per sequence of stacked indices).
 
     Where a JAX `.at[idx].set(vals)` has repeated targets, the CPU backend
     the reference is tested on applies the updates in order, so the last one
     stands.  A CUDA scatter picks any of them; writing only the rows marked
     here gives the JAX result, and the same result every run."""
-    rows = torch.arange(idx.shape[0], device=idx.device)
+    rows = torch.arange(idx.shape[-1], device=idx.device).expand(idx.shape)
     tgt = torch.where(ok, idx.long(), n)
-    last = torch.full((n + 1,), -1, dtype=torch.int64, device=idx.device
-                      ).scatter_reduce(0, tgt, torch.where(ok, rows, -1),
+    last = torch.full(idx.shape[:-1] + (n + 1,), -1, dtype=torch.int64,
+                      device=idx.device
+                      ).scatter_reduce(-1, tgt, torch.where(ok, rows, -1),
                                        "amax")
-    return ok & (last[tgt] == rows)
+    return ok & (last.gather(-1, tgt) == rows)
 
 
 def set_last(n: int, idx: torch.Tensor, vals: torch.Tensor,
@@ -237,56 +287,72 @@ def stable_topk(x: torch.Tensor, k: int):
 
 
 # ---------------------------------------------------------------------------
-# derived quantities
+# derived quantities, over a leading sequence axis [S] (`one_or_many`: or
+# one sequence's state)
 # ---------------------------------------------------------------------------
 
+@one_or_many
 def point_obs_count(state: MapState) -> torch.Tensor:
-    """[M] number of keyframe observations per point (from kf_obs)."""
-    M = state.mp_pos.shape[0]
+    """[S, M] number of keyframe observations per point (from kf_obs)."""
+    M = state.mp_pos.shape[-2]
     obs = state.kf_obs
-    return count_ids(obs, state.kf_valid[:, None] & (obs >= 0), M)
+    return count_ids(obs, state.kf_valid[..., None] & (obs >= 0), M,
+                     seq=True)
 
 
+@one_or_many
 def weighted_obs_count(state: MapState) -> torch.Tensor:
-    """[M] nObs with stereo observations counted twice (reference
+    """[S, M] nObs with stereo observations counted twice (reference
     MapPoint::AddObservation, MapPoint.cc:105-109)."""
     okf, okp = state.mp_obs_kf.long(), state.mp_obs_kp.long()
     ok = okf >= 0
-    ur = state.kf_ur[okf.clamp(min=0), okp.clamp(min=0)]
+    ur = seq_take(state.kf_ur, okf.clamp(min=0), okp.clamp(min=0))
     w = torch.where(ur >= 0, 2, 1)
-    return torch.sum(torch.where(ok, w, 0), dim=1).to(torch.int32)
+    return torch.sum(torch.where(ok, w, 0), dim=-1).to(torch.int32)
 
 
+@one_or_many
 def update_covisibility_for_kf(state: MapState, k) -> MapState:
-    """Recompute row/col k of the covisibility matrix: weight(k, j) = number
-    of shared map points (reference KeyFrame::UpdateConnections)."""
-    M = state.mp_pos.shape[0]
+    """Recompute row/col k[s] of each sequence's covisibility matrix:
+    weight(k, j) = number of shared map points (reference
+    KeyFrame::UpdateConnections)."""
+    S, K_ = state.kf_valid.shape
+    M = state.mp_pos.shape[-2]
+    k = seq_ids(k, S, state.kf_obs.device)
     obs = state.kf_obs
-    obs_k = row(obs, k)
-    mark = mask_from_ids(obs_k, obs_k >= 0, M + 1)
-    mark[M:].fill_(False)   # a scalar fill: no host-to-device copy
-    shared = torch.sum(mark[torch.where(obs >= 0, obs.long(), M)], dim=1
-                       ).to(torch.int32)
-    ids = torch.arange(shared.shape[0], device=shared.device)
-    shared = torch.where(state.kf_valid & (ids != k), shared, 0)
-    covis = put_row(put_row(state.covis, k, shared), k, shared, dim=1)
+    obs_k = seq_take(obs, k)                                    # [S, N]
+    mark = mask_from_ids(obs_k, obs_k >= 0, M + 1, seq=True)
+    mark[:, M:].fill_(False)   # a scalar fill: no host-to-device copy
+    shared = torch.sum(seq_take(mark, torch.where(obs >= 0, obs.long(), M)),
+                       dim=-1).to(torch.int32)                  # [S, K]
+    ids = torch.arange(K_, device=shared.device)
+    shared = torch.where(state.kf_valid & (ids != k[:, None]), shared, 0)
+    covis = seq_put_col(seq_put_row(state.covis, k, shared), k, shared)
     return state._replace(covis=covis)
 
 
+@one_or_many
 def spanning_parent_for_kf(state: MapState, k) -> torch.Tensor:
-    """First-connection spanning-tree parent: the top covisible earlier KF."""
-    w = row(state.covis, k)
-    earlier = (torch.arange(w.shape[0], device=w.device) < k) & state.kf_valid
+    """First-connection spanning-tree parent: the top covisible earlier KF
+    ([S] int32)."""
+    S, K_ = state.kf_valid.shape
+    k = seq_ids(k, S, state.covis.device)
+    w = seq_take(state.covis, k)
+    earlier = (torch.arange(K_, device=w.device) < k[:, None]) & \
+        state.kf_valid
     w = torch.where(earlier, w, -1)
-    parent = torch.argmax(w)
-    return torch.where(torch.amax(w) > 0, parent, -1).to(torch.int32)
+    parent = torch.argmax(w, dim=-1)
+    return torch.where(torch.amax(w, dim=-1) > 0, parent, -1).to(torch.int32)
 
 
+@one_or_many
 def covisible_neighbors(state: MapState, k, n: int,
                         min_weight: int = 1) -> torch.Tensor:
     """Top-n covisible KF ids of k by weight (-1 padded), ties towards the
-    lower id (reference GetBestCovisibilityKeyFrames)."""
-    w = torch.where(state.kf_valid, row(state.covis, k), 0)
+    lower id (reference GetBestCovisibilityKeyFrames): [S, n]."""
+    S = state.kf_valid.shape[0]
+    k = seq_ids(k, S, state.covis.device)
+    w = torch.where(state.kf_valid, seq_take(state.covis, k), 0)
     top_w, idx = stable_topk(w, n)
     return torch.where(top_w >= min_weight, idx, -1)
 

@@ -40,7 +40,8 @@ class Frame(NamedTuple):
 
     @property
     def n(self):
-        return torch.sum(self.valid.to(torch.int32))
+        """Valid keypoints (per frame of a stacked Frame)."""
+        return torch.sum(self.valid.to(torch.int32), dim=-1)
 
 
 def _finish(cfg: SLAMConfig, feats: Features, ur, depth, frame_id, timestamp):
@@ -82,9 +83,11 @@ def build_rgbd_frame_fn(cfg: SLAMConfig, device=None, n_images: int = 1):
     S frame ids and timestamps, extracts all of them in one batched atlas
     program (one FAST launch over S·L planes), and returns one Frame whose
     fields carry a leading S axis; per image, the same Frame as the
-    one-image function's."""
+    one-image function's, bit for bit on the card too (the BRIEF GEMM runs
+    once an image: `build_atlas_extractor`'s `frames`)."""
     extract = build_extractor(cfg.orb, cfg.camera.height, cfg.camera.width,
-                              device=device, n_images=n_images)
+                              device=device, n_images=n_images,
+                              frames=n_images)
     bf = cfg.camera.bf
 
     def fn(img, depth_map, frame_id, timestamp):

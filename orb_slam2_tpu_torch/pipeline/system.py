@@ -6,9 +6,9 @@ on a keyframe, insert it (with its depth points for stereo/RGB-D and its
 BoW vector when a vocabulary is loaded), and advance the pending
 keyframe's integration by one stage (triangulate, fuse, 3 local-BA chunks,
 cull) — the deterministic form of the reference's LocalMapping thread.
-Every decision of the step is a device branch (`core.control.cond` /
-`switch`, JAX's `lax.cond` / `lax.switch`), so the step reads nothing
-back on the host.
+Every decision of the step is a device branch (`core.control.cond`,
+JAX's `lax.cond` / `lax.switch`), so the step reads nothing back on the
+host.
 
 On the card the session runs the step as ONE CUDA graph a frame, or one a
 batch of `cfg.frame_batch = B` frames (B step bodies, each under a device
@@ -40,6 +40,7 @@ BoW, relocalisation or loop closing.
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from collections import deque
@@ -47,6 +48,7 @@ from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from orb_slam2_tpu_torch import resolve_device
 from orb_slam2_tpu_torch.ba import local as ba_local
@@ -54,7 +56,9 @@ from orb_slam2_tpu_torch.ba.async_gba import AsyncGBA
 from orb_slam2_tpu_torch.config import MONOCULAR, RGBD, STEREO, SLAMConfig
 from orb_slam2_tpu_torch.core import control, lie
 from orb_slam2_tpu_torch.map import checkpoint, ops
-from orb_slam2_tpu_torch.map.state import MapState, empty_map, put_row
+from orb_slam2_tpu_torch.map.state import (MapState, empty_map, first_flagged,
+                                           one_or_many, seq_ids, seq_put_row,
+                                           seq_where)
 from orb_slam2_tpu_torch.pipeline import frame as frame_mod
 from orb_slam2_tpu_torch.pipeline import init as init_mod
 from orb_slam2_tpu_torch.pipeline import loopclosing, mapping, reloc, tracking
@@ -73,8 +77,11 @@ DEFAULT_VOCAB = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "data", "vocab_default.npz")
 
 
+@one_or_many
 def set_bow(state: MapState, kf, bow: torch.Tensor) -> MapState:
-    return state._replace(kf_bow=put_row(state.kf_bow, kf, bow))
+    """Keyframe kf[s]'s BoW vector bow [S, W]."""
+    k = seq_ids(kf, state.kf_bow.shape[0], bow.device)
+    return state._replace(kf_bow=seq_put_row(state.kf_bow, k, bow))
 
 
 def n_stages(cfg: SLAMConfig) -> int:
@@ -84,53 +91,125 @@ def n_stages(cfg: SLAMConfig) -> int:
     return 2 + max(-(-total_ba // BA_ITERS), 1) + 1
 
 
+# Batched calls of the insertion and of each stage group, summed on the
+# device in place (so also under graph replay): one a call whatever the
+# number of sequences it serves; `int(c)` reads one, `c.reset()` restarts
+# it.
+insert_calls = control.Count()
+STAGE_GROUPS = ("triangulate", "fuse", "local_ba", "cull")
+stage_calls = {g: control.Count() for g in STAGE_GROUPS}
+
+
+@one_or_many
 def insert_kf(state: MapState, ts: TrackState, frame, cur_pids,
-              cfg: SLAMConfig):
-    """Insert the tracked frame as a keyframe (with its depth points for
-    stereo/RGB-D) and arm its integration."""
+              cfg: SLAMConfig, active=None):
+    """Insert each sequence's tracked frame (a Frame with a leading [S]
+    axis) as a keyframe, with its depth points for stereo/RGB-D, and arm
+    its integration; one call for all S.  `active` [S]: the sequences
+    whose depth points the counts take (all by default; the caller keeps
+    the others' state)."""
+    insert_calls.tick(ts.T.device)
     state, kf_id = ops.insert_keyframe(state, frame, ts.T, cur_pids)
     if cfg.sensor != MONOCULAR:
-        state = mapping.create_depth_points(state, kf_id, cfg)
+        state = mapping.create_depth_points(state, kf_id, cfg, active)
+    S = kf_id.shape[0]
     dev = ts.T.device
     k = kf_id.to(torch.int32)
     ts = ts._replace(
-        ref_kf=k, last_kf_frame_id=torch.as_tensor(
-            frame.frame_id, device=dev).to(torch.int32),
-        map_kf=k, map_stage=torch.zeros((), dtype=torch.int32, device=dev),
-        ba_lam=torch.full((), 1e-4, device=dev))
+        ref_kf=k, last_kf_frame_id=seq_ids(frame.frame_id, S, dev).to(
+            torch.int32),
+        map_kf=k, map_stage=torch.zeros(S, dtype=torch.int32, device=dev),
+        ba_lam=torch.full((S,), 1e-4, device=dev))
     return state, record_traj(state, ts, frame, True)
 
 
+def on_sequences(on: torch.Tensor, fn, operands):
+    """`fn(*operands, on)` for the sequences where on [S] holds, each of
+    the others keeping its own values.  With n of them, fn runs on a dense
+    batch of the next power of two >= n sequences (the sequences gathered,
+    the results scattered back; all S once that reaches S), under a device
+    branch on n, so that a stage group serving few of the sequences does
+    little of the others' work.  At S = 1, fn itself: the caller's branch
+    runs it only when its one sequence takes it."""
+    S = on.shape[0]
+    if S == 1:
+        return fn(*operands, on)
+    n = on.sum()
+    lo, A = 0, 1
+    while True:
+        A = min(A, S)
+        hit = n > lo if A == S else (n > lo) & (n <= A)
+        operands = control.cond(hit, functools.partial(_dense, on, fn, A),
+                                control.identity, operands)
+        if A == S:
+            return operands
+        lo, A = A, 2 * A
+
+
+def _dense(on, fn, A, *ops):
+    """`on_sequences`'s branch for a batch of A of the S sequences."""
+    if A == on.shape[0]:
+        return seq_where(on, fn(*ops, on), ops)
+    idx = first_flagged(on, A)                  # the n, then others
+    keep = on.gather(0, idx)
+    take = lambda x: x.index_select(0, idx) if isinstance(
+        x, torch.Tensor) else x
+    sub = pytree.tree_map(take, ops)
+    new = seq_where(keep, fn(*sub, keep), sub)
+    put = lambda x, m, s: x if m is s else x.index_copy(0, idx, m)
+    return pytree.tree_map(put, ops, new, sub)
+
+
+@one_or_many
 def mapping_stage(state: MapState, ts: TrackState, cfg: SLAMConfig,
                   n_st: Optional[int] = None):
-    """Advance the pending keyframe's integration by one stage, of `n_st`
-    (by default `n_stages(cfg)`): a device switch over the stages (JAX
-    system.py:150-153)."""
+    """Advance each sequence's pending keyframe integration by one stage,
+    of `n_st` (by default `n_stages(cfg)`); sequences with none pending
+    (`map_kf < 0`) keep theirs.  JAX switches on the stage (system.py:
+    150-153), and under the dp step's vmap that switch selects: here each
+    distinct stage function (triangulate, fuse, a BA chunk, cull) runs
+    once for the sequences at that stage under a device branch on "some
+    sequence is at it" (`on_sequences`), each sequence keeping its own
+    stage's result; the BA chunks share one call, each sequence with its
+    own damping."""
     n_st = n_st or n_stages(cfg)
-    k = ts.map_kf.long().clamp(min=0)
+    active = ts.map_kf >= 0
+    stage = ts.map_stage
+    kf = lambda t: t.map_kf.long().clamp(min=0)
 
-    def s_tri(st, t):
-        return mapping.triangulate_new_points(st, k, cfg), t
+    def s_tri(st, t, on):
+        return mapping.triangulate_new_points(st, kf(t), cfg), t
 
-    def s_fuse(st, t):
-        return mapping.fuse_neighbors(st, k, cfg), t
+    def s_fuse(st, t, on):
+        return mapping.fuse_neighbors(st, kf(t), cfg), t
 
-    def s_ba(st, t):
-        st, lam = ba_local.local_ba(st, k, cfg, n_outer=BA_ITERS,
+    def s_ba(st, t, on):
+        st, lam = ba_local.local_ba(st, kf(t), cfg, n_outer=BA_ITERS,
                                     lam0=t.ba_lam, return_lam=True)
         return st, t._replace(ba_lam=lam)
 
-    def s_cull(st, t):
-        st = mapping.cull_points(st, k, cfg)
-        return mapping.cull_redundant_keyframes(st, t, k, cfg)
+    def s_cull(st, t, on):
+        st = mapping.cull_points(st, kf(t), cfg)
+        return mapping.cull_redundant_keyframes(st, t, kf(t), cfg, active=on)
 
-    state, ts = control.switch(ts.map_stage,
-                               [s_tri, s_fuse] + [s_ba] * (n_st - 3) +
-                               [s_cull], (state, ts))
+    groups = zip(STAGE_GROUPS, (s_tri, s_fuse, s_ba, s_cull),
+                 (stage <= 0, stage == 1, (stage >= 2) & (stage < n_st - 1),
+                  stage >= n_st - 1))
+    for name, fn, at in groups:
+        on = active & at
+
+        def run(st, t, name=name, fn=fn, on=on):
+            stage_calls[name].tick(on.device)
+            return on_sequences(on, fn, (st, t))
+
+        state, ts = control.cond(on.any(), run, control.identity,
+                                 (state, ts))
     nxt = ts.map_stage + 1
     done = nxt >= n_st
-    ts = ts._replace(map_stage=torch.where(done, 0, nxt).to(torch.int32),
-                     map_kf=torch.where(done, -1, ts.map_kf).to(torch.int32))
+    ts = ts._replace(
+        map_stage=torch.where(active, torch.where(done, 0, nxt),
+                              ts.map_stage).to(torch.int32),
+        map_kf=torch.where(active & done, -1, ts.map_kf).to(torch.int32))
     return state, ts
 
 

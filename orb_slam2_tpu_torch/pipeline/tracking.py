@@ -5,7 +5,7 @@ sequence axis [S] on every field: the dp step's S sequences are tracked by
 one pass in which every op runs once over all S, as JAX's
 `jax.vmap(step_fn)` runs its tracking, and each pose LM is one batch of S
 problems (one kernel launch on the card).  The session's one sequence
-takes the same functions without the axis (`_one_or_many` runs it as
+takes the same functions without the axis (`one_or_many` runs it as
 S = 1), so there is one implementation of tracking.  Where the JAX step
 branches with `lax.cond` (motion model vs reference keyframe), this port
 branches with `core.control.cond`, as JAX's vmap of it does: each branch
@@ -21,19 +21,17 @@ the host.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
-import torch.utils._pytree as pytree
 
 from orb_slam2_tpu_torch.config import SLAMConfig
 from orb_slam2_tpu_torch.core import camera, control, lie
 from orb_slam2_tpu_torch.map.state import (MapState, count_ids, first_flagged,
-                                           mask_from_ids, resolve_replaced,
-                                           seq_index, seq_put_row, seq_take,
-                                           stable_topk)
+                                           mask_from_ids, one_or_many,
+                                           resolve_replaced, seq_index,
+                                           seq_put_row, seq_take, stable_topk)
 from orb_slam2_tpu_torch.matching import hamming, search
 from orb_slam2_tpu_torch.pipeline.frame import Frame
 from orb_slam2_tpu_torch.solvers import pose_opt
@@ -183,28 +181,7 @@ def _bounds(cfg: SLAMConfig):
     return (0.0, float(cfg.camera.width), 0.0, float(cfg.camera.height))
 
 
-def _one_or_many(fn):
-    """Let `fn`, written over a leading sequence axis [S], also take one
-    sequence's state, track state and frame (no leading axis: `ts.T` [7],
-    as the session holds them): run it as S = 1 and return its results
-    without the axis, every field it did not change as the caller's own
-    tensor (the session's fixed storage matches fields by identity)."""
-    @functools.wraps(fn)
-    def wrapped(state, ts, frame, *args, **kwargs):
-        if ts.T.dim() == 2:
-            return fn(state, ts, frame, *args, **kwargs)
-        ins, spec = pytree.tree_flatten((state, ts, frame) + args)
-        one = [x[None] if isinstance(x, torch.Tensor) else x for x in ins]
-        back = {id(b): a for a, b in zip(ins, one)
-                if isinstance(a, torch.Tensor)}
-        out = fn(*pytree.tree_unflatten(one, spec), **kwargs)
-        return pytree.tree_map(
-            lambda x: back.get(id(x), x[0]) if isinstance(x, torch.Tensor)
-            else x, out)
-    return wrapped
-
-
-@_one_or_many
+@one_or_many
 def record_traj(state: MapState, ts: TrackState, frame: Frame,
                 ok) -> TrackState:
     """Log each sequence's pose (Tcw and Tcr relative to the reference KF)
@@ -225,7 +202,7 @@ def record_traj(state: MapState, ts: TrackState, frame: Frame,
 
 
 # ---------------------------------------------------------------------------
-# tracking phases, over a leading sequence axis [S] (`_one_or_many`: or one
+# tracking phases, over a leading sequence axis [S] (`one_or_many`: or one
 # sequence); every op runs once for all S, as under JAX's vmap
 # ---------------------------------------------------------------------------
 
@@ -245,7 +222,7 @@ def vo_point_mask(ts: TrackState, pids: torch.Tensor, cfg: SLAMConfig,
     return m & loc_only if isinstance(loc_only, torch.Tensor) else m
 
 
-@_one_or_many
+@one_or_many
 def track_with_motion_model(state: MapState, ts: TrackState, frame: Frame,
                             cfg: SLAMConfig, loc_only=False):
     """Reference Tracking::TrackWithMotionModel: constant-velocity
@@ -310,7 +287,7 @@ def track_with_motion_model(state: MapState, ts: TrackState, frame: Frame,
     return cur_pids, opt, ok
 
 
-@_one_or_many
+@one_or_many
 def track_reference_keyframe(state: MapState, ts: TrackState, frame: Frame,
                              cfg: SLAMConfig):
     """Reference Tracking::TrackReferenceKeyFrame: descriptor match against
@@ -341,7 +318,7 @@ def track_reference_keyframe(state: MapState, ts: TrackState, frame: Frame,
     return cur_pids, opt, ok
 
 
-@_one_or_many
+@one_or_many
 def track_local_map(state: MapState, ts: TrackState, frame: Frame,
                     T: torch.Tensor, cur_pids: torch.Tensor, cfg: SLAMConfig,
                     after_reloc: torch.Tensor):
@@ -412,7 +389,7 @@ def track_local_map(state: MapState, ts: TrackState, frame: Frame,
     return (visible.to(torch.int32), found), cur_pids, opt, ok
 
 
-@_one_or_many
+@one_or_many
 def need_new_keyframe(state: MapState, ts: TrackState, frame: Frame,
                       cur_pids: torch.Tensor, n_inliers: torch.Tensor, ok,
                       cfg: SLAMConfig):
@@ -474,10 +451,10 @@ def build_track_step(cfg: SLAMConfig):
     TrackLocalMap / bookkeeping / NeedNewKeyFrame (reference
     Tracking::Track, Tracking.cc:267-506), every op once over the leading
     [S] axis of the stacked state, track state and frame, as JAX's vmap of
-    its step runs it (one sequence without the axis: `_one_or_many`).
+    its step runs it (one sequence without the axis: `one_or_many`).
     `loc_only` (localization mode) lets a depth sensor's VO points into
     the motion-model search."""
-    @_one_or_many
+    @one_or_many
     def step(state: MapState, ts: TrackState, frame: Frame, loc_only=False):
         # --- phase 1: motion model, reference-KF fallback.  JAX's vmap of
         # its two lax.conds (tracking.py:394-398) selects per sequence: here

@@ -6,13 +6,17 @@ from __future__ import annotations
 
 import torch
 
-from orb_slam2_tpu_torch.core import camera, lie
+from orb_slam2_tpu_torch.core import camera, lie, seqwise
 
 
 def triangulate_dlt(T1: torch.Tensor, T2: torch.Tensor,
-                    xn1: torch.Tensor, xn2: torch.Tensor) -> torch.Tensor:
+                    xn1: torch.Tensor, xn2: torch.Tensor,
+                    per_seq: bool = False) -> torch.Tensor:
     """World points [..., 3] from normalized coords xn1, xn2 [..., 2] seen by
-    world-to-camera poses T1, T2 (broadcastable to [..., 7])."""
+    world-to-camera poses T1, T2 (broadcastable to [..., 7]).  With
+    `per_seq`, the leading axis is a sequence axis [S] and the normal
+    equations' products run once a sequence (`core.seqwise`)."""
+    ein = seqwise.einsum if per_seq else torch.einsum
     P1 = lie.se3_matrix(T1)[..., :3, :]
     P2 = lie.se3_matrix(T2)[..., :3, :]
     r1 = xn1[..., 0:1, None] * P1[..., 2:3, :] - P1[..., 0:1, :]
@@ -22,8 +26,8 @@ def triangulate_dlt(T1: torch.Tensor, T2: torch.Tensor,
     A = torch.cat(torch.broadcast_tensors(r1, r2, r3, r4), dim=-2)  # [..., 4, 4]
     B = A[..., :, :3]
     d = A[..., :, 3]
-    G = torch.einsum('...ij,...ik->...jk', B, B)
-    b = -torch.einsum('...ij,...i->...j', B, d)
+    G = ein('...ij,...ik->...jk', B, B)
+    b = -ein('...ij,...i->...j', B, d)
     a11, a12, a13 = G[..., 0, 0], G[..., 0, 1], G[..., 0, 2]
     a22, a23, a33 = G[..., 1, 1], G[..., 1, 2], G[..., 2, 2]
     c11 = a22 * a33 - a23 * a23
@@ -40,7 +44,7 @@ def triangulate_dlt(T1: torch.Tensor, T2: torch.Tensor,
     z = (c13 * b[..., 0] + c23 * b[..., 1] + c33 * b[..., 2]) * inv_det
     X = torch.stack([x, y, z], dim=-1)
 
-    AtA = torch.einsum('...ij,...ik->...jk', A, A)
+    AtA = ein('...ij,...ik->...jk', A, A)
     v = torch.cat([X, torch.ones_like(X[..., :1])], dim=-1)
     v = v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True),
                         min=1e-12)

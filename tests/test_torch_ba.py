@@ -98,6 +98,27 @@ def test_local_ba_matches_jax(perturbed_map):
     np.testing.assert_allclose(float(tlam), float(jlam), rtol=1e-6)
 
 
+def test_local_ba_over_sequences_equals_each_alone(perturbed_map):
+    """Two local BAs solved together (the map twice, around its newest
+    keyframe and the one before, each with its own damping) give each
+    sequence the bits of its own S = 1 solve: every product, solve and
+    cost sum of the batched LM runs once a problem (`core/seqwise.py`)."""
+    _, tst = _pair(perturbed_map)
+    cfg = small_cfg(tconfig)
+    k = int(perturbed_map["next_kf"]) - 1
+    ks, lams = torch.tensor([k, k - 1]), torch.tensor([1e-4, 1e-2])
+    stacked = type(tst)(*(torch.stack([x, x]) for x in tst))
+    many, mlam = tlocal.local_ba(stacked, ks, cfg, n_outer=5, lam0=lams,
+                                 return_lam=True)
+    for s in range(2):
+        one, lam = tlocal.local_ba(tst, int(ks[s]), cfg, n_outer=5,
+                                   lam0=lams[s], return_lam=True)
+        assert torch.equal(mlam[s], lam), s
+        for f, x, y in zip(tst._fields, many, one):
+            assert torch.equal(x[s], y), (s, f)
+    assert not torch.equal(many.kf_pose[0], many.kf_pose[1])
+
+
 def test_global_ba_dense_matches_jax(perturbed_map):
     """96 keyframes <= 256: both take the dense Schur path."""
     jst, tst = _pair(perturbed_map)

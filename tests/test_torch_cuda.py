@@ -362,34 +362,32 @@ def test_kernels_count_their_launches_on_the_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("index", [0, 1, 2])
-def test_control_helpers_under_capture(index):
-    """`cond` and `switch` captured once as CUDA graph IF nodes, replayed
-    with each predicate and index: the results equal the eager helpers'.
-    The branches return their operands' structure, so both are carries:
-    the results are written into the operands, which are returned."""
+@pytest.mark.parametrize("pred", [False, True])
+def test_control_cond_under_capture(pred):
+    """`cond` captured once as CUDA graph IF nodes, replayed with each
+    predicate: the results equal the eager helper's.  The branches return
+    their operands' structure, so both are carries: the results are
+    written into the operands, which are returned."""
     _card()
     from orb_slam2_tpu_torch.core import control
     x = torch.linspace(-1, 1, 8, device="cuda")
     y = torch.arange(8.0, device="cuda")
-    branches = [lambda a, b: (a + b, a * 2.0), lambda a, b: (a - b, b),
+    branches = [lambda a, b: (a + b, a * 2.0),
                 lambda a, b: (torch.sin(a) * b, torch.cos(b))]
-    idx = torch.zeros((), dtype=torch.int64, device="cuda")
-    pred = torch.zeros((), dtype=torch.bool, device="cuda")
+    p = torch.zeros((), dtype=torch.bool, device="cuda")
     ops, carry = (x.clone(), y.clone()), (x.clone(), y.clone())
     g = torch.cuda.CUDAGraph()
     with control.capture(g, torch.device("cuda")):
-        s = control.switch(idx, branches, ops)
-        c = control.cond(pred, branches[2], control.identity, carry)
-    idx.fill_(index)
-    pred.fill_(index == 1)
+        s = control.cond(p, branches[0], branches[1], ops)
+        c = control.cond(p, branches[1], control.identity, carry)
+    p.fill_(pred)
     g.replay()
     torch.cuda.synchronize()
-    want = control.switch(torch.tensor(index), branches, (x, y))
+    want = control.cond(torch.tensor(pred), branches[0], branches[1], (x, y))
     assert all(a is b for a, b in zip(s, ops))
     for a, b in zip(s, want):
         assert torch.equal(a, b)
-    want_c = branches[2](x, y) if index == 1 else (x, y)
+    want_c = branches[1](x, y) if pred else (x, y)
     assert all(a is b for a, b in zip(c, carry))
     for a, b in zip(carry, want_c):
         assert torch.equal(a, b)
@@ -430,11 +428,11 @@ def test_replayed_frames_equal_eager_frames():
             assert torch.equal(x, y), f
 
 
-def _dp_run(capture: bool, S: int = 2, n: int = 8):
+def _dp_run(capture: bool, S: int = 2, n: int = 8, seeds=None):
     """`DPProgram` over S RGB-D sequences of tests/test_torch_dp.py's small
-    configuration, init and n - 1 steps; the steps under
-    set_sync_debug_mode("error") when captured (the capture is the first
-    step's)."""
+    configuration (the renderer's seeds 0 to S - 1, or `seeds`), init and
+    n - 1 steps; the steps under set_sync_debug_mode("error") when
+    captured (the capture is the first step's)."""
     from orb_slam2_tpu_torch.distributed import dp
     from orb_slam2_tpu_torch.io import synthetic
     cam = config.CameraConfig(fx=200.0, fy=200.0, cx=160.0, cy=120.0,
@@ -446,8 +444,10 @@ def _dp_run(capture: bool, S: int = 2, n: int = 8):
         cap=config.Capacity(max_keyframes=96, max_points=6144,
                             max_obs_per_kf=512, max_frames=512,
                             local_ba_points=2048))
+    seeds = range(S) if seeds is None else seeds
+    S = len(seeds)
     seqs = [synthetic.generate(cam, n_frames=n, n_points=300,
-                               trajectory="xyz", seed=s) for s in range(S)]
+                               trajectory="xyz", seed=s) for s in seeds]
     dev = lambda k: torch.as_tensor(np.stack(
         [np.asarray(getattr(q, k), np.float32) for q in seqs])).cuda()
     img, depth, t = dev("images"), dev("depths"), dev("timestamps")
@@ -480,3 +480,23 @@ def test_dp_replayed_steps_equal_eager_steps():
     for a, b in ((g.state, e.state), (g.ts, e.ts)):
         for f, x, y in zip(a._fields, a, b):
             assert torch.equal(x, y), f
+
+
+@pytest.mark.cuda
+def test_dp_sequences_equal_their_own_s1_runs_on_card():
+    """Eight RGB-D sequences stepped together (captured, insertions and
+    stages included, each stage group on the batch of the sequences at it)
+    give each sequence the bits of its own S = 1 run, every state field
+    and HUD: the step's cuBLAS / cuSOLVER calls and long float sums run
+    once a sequence (`core/seqwise.py`), the extractor's resize matmuls
+    and BRIEF GEMM once an image."""
+    _card()
+    S = 8
+    many = _dp_run(True, seeds=range(S))
+    assert int(many.state.kf_valid.sum()) >= 2 * S
+    for s in range(S):
+        one = _dp_run(True, seeds=(s,))
+        np.testing.assert_array_equal(many.huds()[:, s], one.huds()[:, 0])
+        for a, b in ((many.state, one.state), (many.ts, one.ts)):
+            for f, x, y in zip(a._fields, a, b):
+                assert torch.equal(x[s], y[0]), (s, f)

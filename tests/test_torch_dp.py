@@ -20,6 +20,13 @@ held to JAX's unbatched track step (jitted after JAX's dp step, in the
 same background thread) from JAX's dp states, to 1e-4 in the pose, as
 tests/test_torch_session.py holds one step from the same state.
 
+Keyframe insertion and the integration stages run once over the
+sequences too: a mixed S = 5 batch of dp-step inputs made from the S = 2
+run's snapshots (a sequence inserting, one in a BA chunk, one idle, two
+triangulating, one of them with its keyframe deferred) gives each
+sequence the bits of its S = 1 step, in warm-up mode as well, with the
+insertion and each stage group one batched call.
+
 The rewritten step makes every decision a device branch and writes into
 the stacked state in place: the S = 2 run goes under test_torch_graph's
 `HostReads` (0 reads but the helpers' marked predicate reads, over
@@ -64,6 +71,7 @@ from orb_slam2_tpu_torch.distributed.launch import free_port
 from orb_slam2_tpu_torch.map.state import empty_map as tempty_map
 from orb_slam2_tpu_torch.core import control
 from orb_slam2_tpu_torch.pipeline import frame as tframe
+from orb_slam2_tpu_torch.pipeline import mapping as tmapping
 from orb_slam2_tpu_torch.pipeline import system as tsystem
 from orb_slam2_tpu_torch.pipeline import tracking as ttracking
 from orb_slam2_tpu_torch.pipeline.tracking import (HUD_N_INLIERS, HUD_N_KF,
@@ -121,8 +129,9 @@ def _port_run(batch, seqs, record=None):
     ts, hud [S, F-1, 5]).  With a dict `record`, the steps run under
     `HostReads` (record["reads"]), the last one in warm-up mode (every
     branch run, the chosen one's result returned), and record the stage
-    each step ran (an insertion's step runs stage 0) and the stacked
-    fields' storage before and after."""
+    each step ran (an insertion's step runs stage 0), the stacked fields'
+    storage before and after, and a copy of the stacked state before each
+    step (record["snaps"][f - 1] before step f)."""
     imgs, depths, ts_ = (torch.from_numpy(a[seqs]) for a in batch)
     init_fn, step_fn = tdp.build_dp_step(small_rgbd_cfg(tconfig), "cpu")
     state, ts = tdp.make_batch_states(small_rgbd_cfg(tconfig), len(seqs),
@@ -136,6 +145,7 @@ def _port_run(batch, seqs, record=None):
             state, ts, hud = step_fn(state, ts, imgs[:, f], depths[:, f],
                                      fid, ts_[:, f])
         else:
+            record["snaps"].append((tsystem.clone(state), tsystem.clone(ts)))
             kf0 = state.next_kf.clone()
             stage = torch.where(ts.map_kf >= 0, ts.map_stage, -1)
             warm = control.warmup() if f == N_FRAMES - 1 else \
@@ -153,7 +163,7 @@ def _port_run(batch, seqs, record=None):
 
 @pytest.fixture(scope="module")
 def port_record():
-    return dict(reads=HostReads(), stages=set())
+    return dict(reads=HostReads(), stages=set(), snaps=[])
 
 
 @pytest.fixture(scope="module")
@@ -473,3 +483,143 @@ def test_batched_track_matches_jax(mixed, batched_track, jax_compiled, s):
     j_ids = set(np.asarray(j_pids)[np.asarray(j_pids) >= 0].tolist())
     assert len(t_ids & j_ids) >= 0.98 * len(t_ids | j_ids), MIXED[s]
     assert bool(mts.has_velocity[s]) and bool(j_ts.has_velocity)
+
+
+# ---------------------------------------------------------------------------
+# keyframe insertion and the integration stages over the sequence axis
+# ---------------------------------------------------------------------------
+
+# the counts the batched insertion and stages must give as their S = 1
+# calls do, summed
+STAGE_SEQ_COUNTS = ("depth_points", "close_depth_points")
+MIXED_STAGES = ("inserts", "idle", "BA chunk", "triangulates, defers",
+                "triangulates")
+
+
+def _stage_counts():
+    out = {k: int(getattr(tmapping, k)) for k in STAGE_SEQ_COUNTS}
+    out["insert_calls"] = int(tsystem.insert_calls)
+    out.update({g: int(c) for g, c in tsystem.stage_calls.items()})
+    out.update(_track_counts())
+    return out
+
+
+def _reset_stage_counts():
+    for k in STAGE_SEQ_COUNTS:
+        getattr(tmapping, k).reset()
+    tsystem.insert_calls.reset()
+    for c in tsystem.stage_calls.values():
+        c.reset()
+    _reset_counts()
+
+
+@pytest.fixture(scope="module")
+def mixed_stage(batch, port, port_record):
+    """An S = 5 batch of dp-step inputs from the S = 2 run's snapshots,
+    one sequence in each of MIXED_STAGES: (state, ts) before a step where
+    sequence 0 needs a keyframe and inserts it (then triangulates it); one
+    idle (map_kf = -1); one where sequence 1 needs none, put in a BA chunk
+    of its newest keyframe; the first one's again, put at stage 0 of its
+    newest keyframe, so that its keyframe waits (busy_early) while it
+    triangulates; the BA one's, put at stage 0 too.  Three sequences
+    triangulate: a batch of four of the five, the idle one gathered only
+    to fill it (`system.on_sequences`; triangulating its keyframe 0 would
+    make points).  Returns [(state, ts, img, depth, fid, t)] with S = 1
+    fields."""
+    hud = port[2]
+    snaps = port_record["snaps"]
+    imgs, depths, stamps = (torch.from_numpy(a) for a in batch)
+    busy = lambda f, s: bool((snaps[f - 1][1].map_kf[s] >= 0) &
+                             (snaps[f - 1][1].map_stage[s] <= 1))
+    need = lambda f, s: bool(hud[s, f - 1, HUD_NEED_KF])
+    steps = range(1, N_FRAMES)
+    f_ins = max(f for f in steps if need(f, 0) and not busy(f, 0))
+    f_ba = max(f for f in steps if not need(f, 1))
+    f_idle = max(f for f in steps if not need(f, 0))
+
+    def member(f, s, **patch):
+        st, tt = (type(x)(*(v[s:s + 1].clone() for v in x))
+                  for x in snaps[f - 1])
+        newest = (st.next_kf - 1).to(torch.int32)
+        patch = {k: (newest if v == "newest" else torch.full_like(
+            getattr(tt, k), v)) for k, v in patch.items()}
+        return (st, tt._replace(**patch), imgs[s:s + 1, f],
+                depths[s:s + 1, f], torch.full((1,), f, dtype=torch.int32),
+                stamps[s:s + 1, f])
+
+    return [member(f_ins, 0),
+            member(f_idle, 0, map_kf=-1, map_stage=0),
+            member(f_ba, 1, map_kf="newest", map_stage=3),
+            member(f_ins, 0, map_kf="newest", map_stage=0),
+            member(f_ba, 1, map_kf="newest", map_stage=0)]
+
+
+@pytest.fixture(scope="module")
+def batched_stage(mixed_stage):
+    """One dp step over the S = 5 mixed batch, the same step in warm-up
+    mode (every branch run: the keyframe cull too), and each member's
+    S = 1 step: (batched out, counts; warm-up out; [S = 1 outs], summed
+    counts)."""
+    _, step_fn = tdp.build_dp_step(small_rgbd_cfg(tconfig), "cpu")
+    cat = lambda *xs: type(xs[0])(*(torch.cat(v) for v in zip(*xs))) \
+        if isinstance(xs[0], tuple) else torch.cat(xs)
+    stacked = [cat(*x) for x in zip(*mixed_stage)]
+    fresh = lambda args: [tsystem.clone(a) if isinstance(a, tuple)
+                          else a.clone() for a in args]
+    _reset_stage_counts()
+    many = step_fn(*fresh(stacked))
+    many_counts = _stage_counts()
+    with control.warmup():
+        warm = step_fn(*fresh(stacked))
+    _reset_stage_counts()
+    ones = [step_fn(*fresh(m)) for m in mixed_stage]
+    return many, many_counts, warm, ones, _stage_counts()
+
+
+@pytest.mark.parametrize("s", range(len(MIXED_STAGES)))
+def test_batched_insertion_and_stages_equal_each_sequence_alone(
+        batched_stage, s):
+    """One dp step over the mixed S = 5 batch (a sequence inserting and
+    triangulating, one idle, one in a BA chunk, one triangulating with its
+    keyframe deferred, one triangulating) gives sequence s the bits of its
+    S = 1 step, every state field and HUD."""
+    many, _, _, ones, _ = batched_stage
+    for part, a, b in zip(("state", "ts", "hud"), many, ones[s]):
+        pairs = zip(a._fields, a, b) if isinstance(a, tuple) else \
+            [("", a, b)]
+        for f, x, y in pairs:
+            assert torch.equal(x[s], y[0]), (MIXED_STAGES[s], part, f)
+
+
+def test_batched_insertion_and_stages_run_once_for_the_batch(
+        mixed_stage, batched_stage):
+    """The mixed S = 5 step takes each sequence's own path (inserted and
+    triangulated; idle; a BA chunk; triangulated with its keyframe
+    deferred; triangulated), the same step in warm-up mode (every branch,
+    every batch size, the keyframe cull's too) gives the same bits, the
+    per-sequence counts are the single steps' sum, and the insertion and
+    each stage group run once for the batch: the triangulation once for
+    three sequences."""
+    many, mc, warm, ones, oc = batched_stage
+    for part, a, b in zip(("state", "ts", "hud"), many, warm):
+        pairs = zip(a._fields, a, b) if isinstance(a, tuple) else \
+            [("", a, b)]
+        for f, x, y in pairs:
+            assert torch.equal(x, y), ("warm-up", part, f)
+    before = [m[1] for m in mixed_stage]
+    after = many[1]
+    assert int(after.map_kf[0]) == int(mixed_stage[0][0].next_kf[0])
+    assert int(after.map_stage[0]) == 1                  # inserted, tri ran
+    assert int(after.map_kf[1]) == -1                    # idle
+    assert int(after.map_stage[2]) == 4                  # a BA chunk ran
+    assert int(after.map_kf[3]) == int(before[3].map_kf[0])   # deferred
+    assert int(after.map_stage[3]) == 1
+    assert int(after.map_stage[4]) == 1                  # tri ran
+    assert many[2][3, HUD_NEED_KF] == 1
+    assert {k: mc[k] for k in STAGE_SEQ_COUNTS + SEQ_COUNTS} == \
+        {k: oc[k] for k in STAGE_SEQ_COUNTS + SEQ_COUNTS}
+    assert mc["depth_points"] > 0
+    assert (mc["insert_calls"], oc["insert_calls"]) == (1, 1)
+    assert (mc["triangulate"], oc["triangulate"]) == (1, 3)
+    assert (mc["local_ba"], oc["local_ba"]) == (1, 1)
+    assert mc["fuse"] == mc["cull"] == oc["fuse"] == oc["cull"] == 0

@@ -1,9 +1,8 @@
 """The one-program frame step of the port, on the CPU, on tests/test_e2e.py's
 small configuration (320x240).
 
-(a) `core.control.cond` / `switch` against `lax.cond` / `lax.switch` on a
-    few small functions and every branch index (out-of-range indices clamp
-    as in JAX), eagerly and in warm-up mode (every branch run).
+(a) `core.control.cond` against `lax.cond` on a few small functions,
+    eagerly and in warm-up mode (every branch run).
 (b) Zero host reads in the per-frame step: a `TorchDispatchMode` counts
     the operations that read the device from the host (`item` and its
     kin, `nonzero`, `bincount`, `unique*`, `masked_select`, indexing with a
@@ -189,13 +188,12 @@ def rgbd(seq):
 
 
 # ---------------------------------------------------------------------------
-# (a) the control helpers against lax
+# (a) the control helper against lax
 # ---------------------------------------------------------------------------
 
 def _branches(m):
-    """Three branches of (x, y) for the array module m."""
+    """Two branches of (x, y) for the array module m."""
     return [lambda x, y: (x + y, x * 2.0),
-            lambda x, y: (x - y, y),
             lambda x, y: (m.sin(x) * y, m.cos(y))]
 
 
@@ -204,8 +202,8 @@ def _branches(m):
 def test_cond_matches_lax_cond(pred, warm):
     x = np.linspace(-1, 1, 5).astype(np.float32)
     y = np.arange(5, dtype=np.float32)
-    jt, jf, _ = _branches(jnp)
-    tt, tf, _ = _branches(torch)
+    jt, jf = _branches(jnp)
+    tt, tf = _branches(torch)
     j = jax.lax.cond(pred, jt, jf, jnp.asarray(x), jnp.asarray(y))
     with control.warmup() if warm else _null():
         t = control.cond(torch.tensor(pred), tt, tf,
@@ -222,27 +220,12 @@ def test_cond_matches_lax_cond(pred, warm):
         assert all(a is b for a, b in zip(out, ops))
 
 
-@pytest.mark.parametrize("index", [-3, 0, 1, 2, 7])
-def test_switch_matches_lax_switch(index):
-    x = np.linspace(-1, 1, 5).astype(np.float32)
-    y = np.arange(5, dtype=np.float32)
-    j = jax.lax.switch(index, _branches(jnp), jnp.asarray(x), jnp.asarray(y))
-    for warm in (False, True):
-        with control.warmup() if warm else _null():
-            t = control.switch(torch.tensor(index), _branches(torch),
-                               (torch.from_numpy(x), torch.from_numpy(y)))
-        for a, b in zip(t, j):
-            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
-                                       atol=1e-6)
-
-
 def test_predicate_read_is_marked():
-    """The helpers' read is the only one `in_predicate_read` marks."""
+    """The helper's read is the only one `in_predicate_read` marks."""
     reads = HostReads()
-    p, i, x = torch.tensor(True), torch.tensor(1), torch.tensor(3)
+    p, x = torch.tensor(True), torch.tensor(3)
     with reads:
         control.cond(p, lambda: torch.ones(2), lambda: torch.zeros(2))
-        control.switch(i, [lambda: 0, lambda: 1])
     assert reads.n == 0
     with reads:
         int(x)

@@ -166,6 +166,22 @@ def test_add_obs_matches_jax(base):
     assert_states_equal(tst, jst)
 
 
+def test_add_obs_with_a_point_at_two_keypoints_matches_jax(base):
+    """A point listed at two keypoints (two tracked points that forward to
+    one after a fusion) claims its first free observer slot twice: the
+    later keypoint stands, as JAX's scatter leaves it on the CPU (and the
+    port's `last_writer` makes it the same on every run on the card)."""
+    jst, tst = _pair(base)
+    pids = np.full(N, -1, np.int32)
+    pids[[0, 3, 5]] = [9, 9, 7]
+    kp = np.arange(N, dtype=np.int32)
+    jst = jops.add_obs(jst, 2, jnp.asarray(kp), jnp.asarray(pids))
+    tst = tops.add_obs(tst, 2, torch.from_numpy(kp), torch.from_numpy(pids))
+    assert_states_equal(tst, jst)
+    assert 3 in tst.mp_obs_kp[9].tolist() and 0 not in \
+        tst.mp_obs_kp[9][tst.mp_obs_kf[9] == 2].tolist()
+
+
 def test_add_obs_multi_matches_jax(base):
     jst, tst = _pair(base)
     kf = np.asarray([0, 1, 2, 1, -1, 2], np.int32)
