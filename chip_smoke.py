@@ -150,11 +150,44 @@ each of which fails the run when it fails:
      eager run one pose LM launch for each `pose_optimize` call; frame ms
      p50/p90/max, device ms a frame and idle share (torch.profiler over a
      window) and peak memory of both.
- Phases 1-19 run the session as users do, so through its captured
- program; the kernels count their own launches on the device, so replays
- count.  Phase 3 also holds FAST bit-exact on the KITTI stereo pair's real
- atlas, and phase 4 the pose LM on an N = 2048 problem recorded in phase
- 12 (recorded outside the capture, as the program is warmed up).
+ 21. mono_tum with TUM1's fr1 lens (k1 0.262383, k2 -0.953104, k3
+     1.163314): the bench mono scene (500 points, xyz, seed 0, 120 frames)
+     rendered by the pinhole camera, each pixel of the written image
+     sampled at its undistorted position (`core/camera.undistort_points`,
+     on the CPU), as a TUM directory (8-bit RGB PNGs, rgb.txt) with the
+     lens in its settings, through `cli.main(["run", "--dataset", "tum",
+     "--sensor", "mono", ...])`;
+ 22. mono_kitti: phase 12's directory and settings with `--sensor mono`
+     (image_0 only);
+ 23. stereo_euroc: a room at the EuRoC rig (the rectified pair rendered at
+     LEFT.P / RIGHT.P, 752x480, 60 frames; the room's depth range
+     EUROC_DEPTH_RANGE, near enough that need_close fires, which this
+     phase checks), written as the raw distorted
+     mav0/cam0 and cam1 images by inverse rectification (each raw pixel
+     normalised with K, undistorted with D, rotated by R, projected with
+     P, the render sampled there), with the reference's EuRoC.yaml
+     (`Camera.*` as `config.euroc_config`, its LEFT/RIGHT blocks): the
+     reader undoes the distortion on the host and the session runs on the
+     rectified pair;
+ 24. mono_euroc: that directory's cam0 with the reference's monocular
+     EuRoC.yaml (cam0's own K and D, 1000 features).
+     Each of 21-24 has phase 12's checks: >= 80% tracked (mono) under a
+     scale-aligned ATE <= min(0.02 m, JAX's + 0.01 m), or >= 90% (stereo)
+     under a metric ATE <= min(0.06 m, JAX's + 0.01 m); keyframes within 2
+     of the JAX package's on the same directory; the state on the card,
+     one graph launch a frame, one FAST launch a frame over 8 (mono) or 16
+     (stereo) planes, every pose LM through its kernel; and prints the
+     image read ms a frame (host; EuRoC's remaps included), frame ms,
+     launches a frame, peak memory, the frames need_close fired on (stereo:
+     the close depth points made) and the phase's wall time.  They run
+     after phase 14, in its directory.
+ Phases 1-19 and 21-24 run the session as users do, so through its
+ captured program; the kernels count their own launches on the device, so
+ replays count.  Phase 3 also holds FAST bit-exact on the KITTI stereo
+ pair's real atlas, on phase 22's KITTI mono frame's and on phase 23's
+ rectified EuRoC pair's (16 planes of 752x480), and phase 4 the pose LM on
+ an N = 2048 problem recorded in phase 12 and on one recorded in phase 23
+ (recorded outside the capture, as the program is warmed up).
 
 Prints the card's name and power limit and a JSON line describing every
 ported kernel, then, as the last line, {"ok": true, "device": {...}}.  Exits
@@ -164,9 +197,11 @@ missing, or any phase fails.  Imports nothing of JAX.
 
 import contextlib
 import dataclasses
+import io
 import json
 import multiprocessing
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -276,6 +311,40 @@ JAX_MONO_LOC_ATE = 0.02112
 JAX_KITTI = (0.004475, 3)
 JAX_TUM = (0.001873, 3)
 JAX_ATE_MARGIN_M, JAX_KF_MARGIN = 0.01, 2
+# phases 21-24's (ATE, keyframes) from the same script on the CPU,
+#   JAX_PLATFORMS=cpu python scripts/jax_session_reference.py tum_mono
+#   JAX_PLATFORMS=cpu python scripts/jax_session_reference.py kitti_mono
+#   JAX_PLATFORMS=cpu python scripts/jax_session_reference.py \
+#       euroc_stereo euroc_mono
+# (tracked 118/120, 35/40, 60/60, 59/60 frames)
+JAX_TUM_MONO = (0.004290, 10)
+JAX_KITTI_MONO = (0.018817, 7)
+JAX_EUROC_STEREO = (0.003532, 9)
+JAX_EUROC_MONO = (0.002578, 7)
+# phases 21-24: the four example paths of the CLI that the phases above do
+# not drive, each through `cli.main(["run", ...])` on a directory written in
+# its dataset's layout.  21: the bench mono scene (500 points, xyz, seed 0)
+# seen through TUM1's fr1 lens (`config.tum1_config`), LENS_FRAMES frames
+# (the bench's 120: over 60 the JAX package initialises from frames 0-1
+# and ends at a scale-aligned ATE of 0.119 m, over 120 at 0.0043 m), as a
+# TUM directory; 22: phase 12's directory read as mono (image_0);
+# 23-24: a room at the EuRoC rig, EUROC_FRAMES frames, written as the raw
+# distorted cam0/cam1 images, read as stereo (rectified on the host by the
+# settings' LEFT/RIGHT blocks) and as mono (cam0, its own lens model).
+# Gates: phase 12's (mono: >= TRACKED_MIN_FRAC tracked, scale-aligned ATE
+# <= ATE_GATE_M; stereo: >= DEPTH_TRACKED_MIN_FRAC, metric ATE <=
+# DEPTH_ATE_GATE_M["stereo"]), each also within JAX_ATE_MARGIN_M of JAX's
+# ATE and JAX_KF_MARGIN of its keyframes on the same directory
+LENS_FRAMES = N_FRAMES
+EUROC_FRAMES = 60
+# the room's near and far depth (m, `synthetic.generate`'s depth_range):
+# its walls enter the view at ~2.1 x the near depth, so at the default
+# (2, 8) no point is closer than ThDepth x baseline = 35 x 0.110 m and
+# need_close cannot fire; here it does (scripts/euroc_close_sweep.py)
+EUROC_DEPTH_RANGE = (1.3, 4.5)
+# fixed-point iterations of the raw images' undistortion (float64): enough
+# to converge at the raw corners, where the engine's 8 do not
+EUROC_UNDISTORT_ITERS = 50
 
 KITTI_SETTINGS = """%YAML:1.0
 # KITTI 00-02 (the reference's Examples/Stereo/KITTI00-02.yaml) with the
@@ -305,17 +374,18 @@ TPU.maxPoints: 131072
 
 
 def tum_settings(cam) -> str:
-    """tests/test_io_ingest.py's YAML keys for camera `cam` (no
-    distortion) at the bench's capacities."""
+    """tests/test_io_ingest.py's YAML keys for camera `cam`, its lens
+    (k1 k2 p1 p2 k3) included, at the bench's capacities."""
     return f"""%YAML:1.0
 Camera.fx: {cam.fx}
 Camera.fy: {cam.fy}
 Camera.cx: {cam.cx}
 Camera.cy: {cam.cy}
-Camera.k1: 0.0
-Camera.k2: 0.0
-Camera.p1: 0.0
-Camera.p2: 0.0
+Camera.k1: {cam.k1}
+Camera.k2: {cam.k2}
+Camera.p1: {cam.p1}
+Camera.p2: {cam.p2}
+Camera.k3: {cam.k3}
 Camera.width: {cam.width}
 Camera.height: {cam.height}
 Camera.fps: {cam.fps}
@@ -331,6 +401,108 @@ ORBextractor.minThFAST: 7
 TPU.maxKeypoints: 1024
 TPU.maxKeyframes: 512
 TPU.maxPoints: 32768
+"""
+
+
+# the reference's Examples/Stereo/EuRoC.yaml rectification blocks (its
+# `data:[` without a space included), as tests/test_torch_io.py holds them
+EUROC_BLOCKS = """
+LEFT.height: 480
+LEFT.width: 752
+LEFT.D: !!opencv-matrix
+   rows: 1
+   cols: 5
+   dt: d
+   data:[-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0]
+LEFT.K: !!opencv-matrix
+   rows: 3
+   cols: 3
+   dt: d
+   data: [458.654, 0.0, 367.215, 0.0, 457.296, 248.375, 0.0, 0.0, 1.0]
+LEFT.R:  !!opencv-matrix
+   rows: 3
+   cols: 3
+   dt: d
+   data: [0.999966347530033, -0.001422739138722922, 0.008079580483432283,
+          0.001365741834644127, 0.9999741760894847, 0.007055629199258132,
+          -0.008089410156878961, -0.007044357138835809, 0.9999424675829176]
+LEFT.P:  !!opencv-matrix
+   rows: 3
+   cols: 4
+   dt: d
+   data: [435.2046959714599, 0, 367.4517211914062, 0,  0,
+          435.2046959714599, 252.2008514404297, 0,  0, 0, 1, 0]
+RIGHT.height: 480
+RIGHT.width: 752
+RIGHT.D: !!opencv-matrix
+   rows: 1
+   cols: 5
+   dt: d
+   data:[-0.28368365, 0.07451284, -0.00010473, -3.555907e-05, 0.0]
+RIGHT.K: !!opencv-matrix
+   rows: 3
+   cols: 3
+   dt: d
+   data: [457.587, 0.0, 379.999, 0.0, 456.134, 255.238, 0.0, 0.0, 1]
+RIGHT.R:  !!opencv-matrix
+   rows: 3
+   cols: 3
+   dt: d
+   data: [0.9999633526194376, -0.003625811871560086, 0.007755443660172947,
+          0.003680398547259526, 0.9999684752771629, -0.007035845251224894,
+          -0.007729688520722713, 0.007064130529506649, 0.999945173484644]
+RIGHT.P:  !!opencv-matrix
+   rows: 3
+   cols: 4
+   dt: d
+   data: [435.2046959714599, 0, 367.4517211914062, -47.90639384423901,
+          0, 435.2046959714599, 252.2008514404297, 0, 0, 0, 1, 0]
+"""
+# the reference's Examples/Stereo/EuRoC.yaml (the rectified camera, which
+# `config.euroc_config` holds, and the blocks above), with that preset's
+# keypoint capacity
+EUROC_STEREO_SETTINGS = """%YAML:1.0
+Camera.fx: 435.2046959714599
+Camera.fy: 435.2046959714599
+Camera.cx: 367.4517211914062
+Camera.cy: 252.2008514404297
+Camera.k1: 0.0
+Camera.k2: 0.0
+Camera.p1: 0.0
+Camera.p2: 0.0
+Camera.width: 752
+Camera.height: 480
+Camera.fps: 20.0
+Camera.bf: 47.90639384423901
+Camera.RGB: 1
+ThDepth: 35
+ORBextractor.nFeatures: 1200
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 8
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+TPU.maxKeypoints: 1280
+""" + EUROC_BLOCKS
+# the reference's Examples/Monocular/EuRoC.yaml: cam0's own model (LEFT.K,
+# LEFT.D) on the raw images
+EUROC_MONO_SETTINGS = """%YAML:1.0
+Camera.fx: 458.654
+Camera.fy: 457.296
+Camera.cx: 367.215
+Camera.cy: 248.375
+Camera.k1: -0.28340811
+Camera.k2: 0.07395907
+Camera.p1: 0.00019359
+Camera.p2: 1.76187114e-05
+Camera.width: 752
+Camera.height: 480
+Camera.fps: 20.0
+Camera.RGB: 1
+ORBextractor.nFeatures: 1000
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 8
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
 """
 
 
@@ -350,22 +522,31 @@ def write_kitti_dir(root: str, seq, right) -> None:
         f.write("".join(f"{t:.6e}\n" for t in seq.timestamps))
 
 
+def write_tum_mono_dir(root: str, seq) -> None:
+    """TUM monocular layout: rgb/ 8-bit RGB PNGs, rgb.txt."""
+    from orb_slam2_tpu_torch.io.png import write_png
+    os.makedirs(os.path.join(root, "rgb"), exist_ok=True)
+    rgb = []
+    for t, img in zip(seq.timestamps, seq.images):
+        rp = f"rgb/{t:.6f}.png"
+        write_png(os.path.join(root, rp),
+                  np.repeat(_u8(img)[..., None], 3, axis=2))
+        rgb.append(f"{t:.6f} {rp}\n")
+    with open(os.path.join(root, "rgb.txt"), "w") as f:
+        f.write("# color images\n# timestamp filename\n" + "".join(rgb))
+
+
 def write_tum_rgbd_dir(root: str, seq, factor: float) -> None:
     """TUM RGB-D layout: rgb/ 8-bit RGB PNGs, depth/ 16-bit PNGs (metres
     times `factor`), rgb.txt and depth.txt."""
     from orb_slam2_tpu_torch.io.png import write_png
-    os.makedirs(os.path.join(root, "rgb"), exist_ok=True)
+    write_tum_mono_dir(root, seq)
     os.makedirs(os.path.join(root, "depth"), exist_ok=True)
-    rgb, dep = [], []
-    for t, img, d in zip(seq.timestamps, seq.images, seq.depths):
-        rp, dp = f"rgb/{t:.6f}.png", f"depth/{t:.6f}.png"
-        write_png(os.path.join(root, rp),
-                  np.repeat(_u8(img)[..., None], 3, axis=2))
+    dep = []
+    for t, d in zip(seq.timestamps, seq.depths):
+        dp = f"depth/{t:.6f}.png"
         write_png(os.path.join(root, dp), (d * factor).astype(np.uint16))
-        rgb.append(f"{t:.6f} {rp}\n")
         dep.append(f"{t:.6f} {dp}\n")
-    with open(os.path.join(root, "rgb.txt"), "w") as f:
-        f.write("# color images\n# timestamp filename\n" + "".join(rgb))
     with open(os.path.join(root, "depth.txt"), "w") as f:
         f.write("# depth images\n# timestamp filename\n" + "".join(dep))
 
@@ -380,6 +561,127 @@ def kitti_sequence(synthetic, cam, n_frames: int = KITTI_FRAMES,
         cam, n_frames=n_frames, n_points=4, trajectory=trajectory, seed=0,
         poses_override=synthetic.right_poses(seq.poses_twc, cam.baseline))
     return seq, right.images
+
+
+def write_euroc_dir(root: str, seq, right) -> None:
+    """EuRoC MAV layout: mav0/cam0/data/ and mav0/cam1/data/ 8-bit gray
+    PNGs named by their timestamps in ns."""
+    from orb_slam2_tpu_torch.io.png import write_png
+    for cam, imgs in (("cam0", seq.images), ("cam1", right)):
+        d = os.path.join(root, "mav0", cam, "data")
+        os.makedirs(d, exist_ok=True)
+        for t, img in zip(seq.timestamps, imgs):
+            write_png(os.path.join(d, f"{round(t * 1e9):019d}.png"), _u8(img))
+
+
+def canvas_camera(cam, xs, ys, pad: int = 2):
+    """A pinhole camera with `cam`'s focal lengths whose image holds every
+    pixel position (xs, ys) of `cam`, `pad` px clear of its border for the
+    bilinear taps: (that camera, the x and y offsets of `cam`'s pixels in
+    its image)."""
+    x0 = max(0, int(np.ceil(pad - xs.min())))
+    y0 = max(0, int(np.ceil(pad - ys.min())))
+    x1 = max(0, int(np.ceil(xs.max() + pad - (cam.width - 1))))
+    y1 = max(0, int(np.ceil(ys.max() + pad - (cam.height - 1))))
+    return dataclasses.replace(
+        cam, cx=cam.cx + x0, cy=cam.cy + y0, width=cam.width + x0 + x1,
+        height=cam.height + y0 + y1), x0, y0
+
+
+def lens_sequence(cam, n_frames: int = LENS_FRAMES):
+    """The bench mono scene (500 points, xyz, seed 0) seen through `cam`'s
+    lens (k1 k2 p1 p2 k3): rendered by the pinhole camera on a canvas that
+    covers the lens's field, then each pixel of the lens's image sampled
+    (bilinear) from the render at its undistorted position, which the
+    port's `core/camera.undistort_points` gives (on the CPU, the engine's 8
+    iterations: the position the session gives a keypoint there).  The
+    render's ground truth; no depth maps."""
+    from orb_slam2_tpu_torch.core import camera
+    from orb_slam2_tpu_torch.io import datasets, synthetic
+    u, v = np.meshgrid(np.arange(cam.width, dtype=np.float32),
+                       np.arange(cam.height, dtype=np.float32))
+    K = torch.tensor([cam.fx, cam.fy, cam.cx, cam.cy])
+    D = torch.tensor([cam.k1, cam.k2, cam.p1, cam.p2, cam.k3])
+    g = camera.undistort_points(K, D, torch.as_tensor(np.stack([u, v], -1))
+                                ).numpy()
+    canvas, x0, y0 = canvas_camera(cam, g[..., 0], g[..., 1])
+    seq = synthetic.generate(canvas, n_frames=n_frames, n_points=500,
+                             trajectory="xyz", seed=0)
+    images = np.stack([datasets.remap_bilinear(im, g[..., 0] + x0,
+                                               g[..., 1] + y0)
+                       for im in seq.images])
+    return dataclasses.replace(seq, images=images, depths=None)
+
+
+def euroc_calibration():
+    """{"LEFT" / "RIGHT": (K [3, 3], D [5], R [3, 3], P [3, 4])} and the
+    raw image size (W, H) of EUROC_BLOCKS, read by the port's settings
+    reader."""
+    from orb_slam2_tpu_torch.io.settings import read_opencv_yaml
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=here, prefix="_smoke_") as tmp:
+        path = os.path.join(tmp, "blocks.yaml")
+        with open(path, "w") as f:
+            f.write("%YAML:1.0\n" + EUROC_BLOCKS)
+        fs = read_opencv_yaml(path)
+    return ({side: tuple(np.asarray(fs[f"{side}.{m}"], np.float64)
+                         for m in "KDRP") for side in ("LEFT", "RIGHT")},
+            (int(fs["LEFT.width"]), int(fs["LEFT.height"])))
+
+
+def euroc_raw_positions(K, D, R, P, size, iters: int = EUROC_UNDISTORT_ITERS):
+    """The rectified pixel (x [H, W], y [H, W]) that each pixel of a raw
+    (distorted) EuRoC image sees: normalised with K, undistorted with D
+    (k1 k2 p1 p2 k3; float64 fixed point), rotated by R, projected with P:
+    the inverse of the undistort-rectify map the reader remaps with."""
+    W, H = size
+    u, v = np.meshgrid(np.arange(W, dtype=np.float64),
+                       np.arange(H, dtype=np.float64))
+    xd, yd = (u - K[0, 2]) / K[0, 0], (v - K[1, 2]) / K[1, 1]
+    k1, k2, p1, p2, k3 = np.ravel(D)[:5]
+    x, y = xd, yd
+    for _ in range(iters):
+        r2 = x * x + y * y
+        rad = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+        x, y = (xd - (x * rad + 2 * p1 * x * y + p2 * (r2 + 2 * x * x) - x),
+                yd - (y * rad + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y - y))
+    p = np.stack([x, y, np.ones_like(x)], -1) @ (P[:, :3] @ R).T
+    return p[..., 0] / p[..., 2], p[..., 1] / p[..., 2]
+
+
+def euroc_eye(side: str, n_frames: int = EUROC_FRAMES,
+              depth_range=EUROC_DEPTH_RANGE):
+    """One raw EuRoC camera of a room at the rig (xyz trajectory, seed
+    0): the rectified pair's
+    camera (LEFT.P; the right eye from `right_poses` at the baseline
+    -RIGHT.P[0, 3] / fx) renders on a canvas that covers both raw fields,
+    and each raw pixel samples (bilinear) its eye's render at the
+    rectified pixel it sees (`euroc_raw_positions`).  "LEFT": the
+    sequence, cam0's raw images and the rectified left camera's ground
+    truth; "RIGHT": cam1's raw images [F, H, W]."""
+    from orb_slam2_tpu_torch import config
+    from orb_slam2_tpu_torch.io import datasets, synthetic
+    calib, (W, H) = euroc_calibration()
+    pos = {s: euroc_raw_positions(*calib[s], (W, H)) for s in calib}
+    P, Pr = calib["LEFT"][3], calib["RIGHT"][3]
+    cam = config.CameraConfig(fx=float(P[0, 0]), fy=float(P[1, 1]),
+                              cx=float(P[0, 2]), cy=float(P[1, 2]), width=W,
+                              height=H, fps=20.0, bf=-float(Pr[0, 3]))
+    canvas, x0, y0 = canvas_camera(
+        cam, np.concatenate([p[0].ravel() for p in pos.values()]),
+        np.concatenate([p[1].ravel() for p in pos.values()]))
+    poses = synthetic.xyz_trajectory(n_frames)
+    seq = synthetic.generate(
+        canvas, n_frames=n_frames, n_points=500 if side == "LEFT" else 4,
+        trajectory="xyz", seed=0, depth_range=depth_range,
+        poses_override=None if side == "LEFT" else
+        synthetic.right_poses(poses, cam.baseline))
+    px, py = pos[side]
+    raw = np.stack([datasets.remap_bilinear(im, px + x0, py + y0)
+                    for im in seq.images])
+    if side == "RIGHT":
+        return raw
+    return dataclasses.replace(seq, images=raw, depths=None)
 
 
 def read_kitti_positions(path: str) -> np.ndarray:
@@ -701,7 +1003,6 @@ def phase_path(name, SLAM, cfg, seq, evaluate, counters, tracked_min,
     fast_cuda, pose_lm_cuda, pose_opt = counters
     n_frames = len(seq.images)
     mono = cfg.sensor == 0
-    planes = cfg.orb.n_levels * (2 if cfg.sensor == 1 else 1)
     # counts zeroed just before the path, read just after (the kernels'
     # own device counts: the session replays its captured program)
     _zero(counters)
@@ -710,18 +1011,7 @@ def phase_path(name, SLAM, cfg, seq, evaluate, counters, tracked_min,
     wall = time.perf_counter() - t0
     launches = _read(counters)
     fast_planes = fast_cuda.device_counts()[1]
-    check(slam.capture and slam.graph_replays == slam._n_dispatch,
-          f"{name}: {slam.graph_replays} graph replays for "
-          f"{slam._n_dispatch} dispatches (captured: {slam.capture})")
-    check(launches["fast_nms"] == slam.frame_count,
-          f"{name}: fast_nms launches {launches['fast_nms']} != one for "
-          f"each of {slam.frame_count} frames")
-    check(fast_planes == planes * launches["fast_nms"],
-          f"{name}: fast_nms covered {fast_planes} planes in "
-          f"{launches['fast_nms']} launches, not {planes} each")
-    off_card = [f for st in (slam.state, slam.ts) for f, v in
-                zip(st._fields, st) if v.device.type != "cuda"]
-    check(not off_card, f"{name}: state tensors off the card: {off_card}")
+    stepped = _check_program(name, slam, launches, fast_planes)
     ate, n = ate_of(slam, seq, evaluate, align_scale=mono)
     check(n >= tracked_min * n_frames,
           f"{name}: tracked {n}/{n_frames} frames")
@@ -730,16 +1020,6 @@ def phase_path(name, SLAM, cfg, seq, evaluate, counters, tracked_min,
     bow_ok = bool((slam.state.kf_bow[kv].abs().sum(1) > 0.99).all())
     check(slam.vocab is not None and bow_ok,
           f"{name}: a keyframe has no BoW vector (vocabulary on)")
-    # frames tracked by the per-frame step: those after the frame that
-    # made the initial map (its second keyframe for mono, its first for
-    # stereo/RGB-D), with a successful trajectory row; each runs >= 2 pose
-    # LMs
-    ok = slam.ts.traj[:slam.frame_count, 15].cpu().numpy() > 0.5
-    first = int(slam.state.kf_frame_id[1 if mono else 0])
-    stepped = int(ok[first + 1:].sum())
-    check(launches["pose_lm"] >= 2 * stepped,
-          f"{name}: pose_lm launches {launches['pose_lm']} < 2 x {stepped} "
-          "tracked frames")
     times = [t * 1e3 for t in slam.timings[10:]]
     qs = statistics.quantiles(times, n=10)
     before = (f" (first slice, vocabulary off: fps {FIRST_SLICE_MAIN[0]}, "
@@ -755,6 +1035,37 @@ def phase_path(name, SLAM, cfg, seq, evaluate, counters, tracked_min,
           f"{fast_planes} planes, pose_lm {launches['pose_lm']} ({stepped} "
           f"frames stepped), {slam.graph_replays} graph replays", flush=True)
     return slam, launches
+
+
+def _check_program(name, slam, launches, fast_planes):
+    """A run through the session's captured program: one graph replay a
+    dispatch, one FAST launch a frame over every plane of its atlas (the
+    levels of one image, or of two for stereo), the state on the card, and
+    at least two pose-LM launches for each frame the per-frame step
+    tracked: those after the frame that made the initial map (its second
+    keyframe for mono, its first for stereo/RGB-D) with a successful
+    trajectory row.  Returns that number of frames."""
+    mono = slam.cfg.sensor == 0
+    planes = slam.cfg.orb.n_levels * (2 if slam.cfg.sensor == 1 else 1)
+    check(slam.capture and slam.graph_replays == slam._n_dispatch,
+          f"{name}: {slam.graph_replays} graph replays for "
+          f"{slam._n_dispatch} dispatches (captured: {slam.capture})")
+    check(launches["fast_nms"] == slam.frame_count,
+          f"{name}: fast_nms launches {launches['fast_nms']} != one for "
+          f"each of {slam.frame_count} frames")
+    check(fast_planes == planes * launches["fast_nms"],
+          f"{name}: fast_nms covered {fast_planes} planes in "
+          f"{launches['fast_nms']} launches, not {planes} each")
+    off_card = [f for st in (slam.state, slam.ts) for f, v in
+                zip(st._fields, st) if v.device.type != "cuda"]
+    check(not off_card, f"{name}: state tensors off the card: {off_card}")
+    ok = slam.ts.traj[:slam.frame_count, 15].cpu().numpy() > 0.5
+    first = int(slam.state.kf_frame_id[1 if mono else 0])
+    stepped = int(ok[first + 1:].sum())
+    check(launches["pose_lm"] >= 2 * stepped,
+          f"{name}: pose_lm launches {launches['pose_lm']} < 2 x {stepped} "
+          "tracked frames")
+    return stepped
 
 
 def phase_depth_path(name, SLAM, cfg, seq, right, evaluate, counters,
@@ -1077,6 +1388,106 @@ def phase_tum(port_cli, evaluate, counters, seq, cam, tmp):
     check(kf_lines == n_kf, f"TUM: {kf_lines} keyframe lines for {n_kf}")
     _check_launched("TUM", launches, n_frames)
     return launches
+
+
+def phase_example(name, key, port_cli, mapping, tracking, evaluate,
+                  counters, tmp, seq, dataset, sensor, root, settings,
+                  jax_ref, write=None, record=False, need_close=False):
+    """Phases 21-24: one example path, `cli.main(["run", "--dataset",
+    dataset, "--sensor", sensor, ...])` on the directory `root` (written
+    first by `write(root)` when given) with the settings text `settings`,
+    the kernels' counts zeroed just before and read just after.  Phase
+    12's checks (tracked share, ATE under the gate and within
+    JAX_ATE_MARGIN_M of JAX's, keyframes within JAX_KF_MARGIN of JAX's;
+    `jax_ref` = (ATE, keyframes), None: no JAX reference to hold the run
+    to) and the captured program's
+    (`_check_program`).  Prints the image read and frame ms, launches a
+    frame, peak memory, the frames need_close fired on (stereo: the close
+    depth points made) and the phase's wall time; with `need_close`, fails
+    unless need_close fired and close depth points were made.  Returns
+    (launches, the recorded pose-LM problem with the most stereo rows when
+    `record`)."""
+    fast_cuda, _, pose_opt = counters
+    t_phase = time.perf_counter()
+    if write is not None:
+        write(root)
+    yaml = os.path.join(tmp, f"{key}.yaml")
+    with open(yaml, "w") as f:
+        f.write(settings)
+    out = os.path.join(tmp, f"{key}_traj.txt")
+    mono = sensor == "mono"
+    recorded = pose_opt.recorded = [] if record else None
+    tracking.need_close_frames.reset()
+    mapping.depth_points.reset()
+    mapping.close_depth_points.reset()
+    log = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            slam = port_cli.main(["run", "--dataset", dataset, "--sensor",
+                                  sensor, "--path", root, "--settings", yaml,
+                                  "--output", out])
+        wall = time.perf_counter() - t0
+    finally:
+        pose_opt.recorded = None
+    launches = _read(counters)
+    fast_planes = fast_cuda.device_counts()[1]
+    peak = torch.cuda.max_memory_allocated()
+    read_ms = float(re.search(r"image read ([0-9.]+) ms/frame",
+                              log.getvalue()).group(1))
+    if dataset == "kitti":
+        ts, est = slam.timestamps(), read_kitti_positions(out)
+    else:
+        ts, est = read_tum_positions(out)
+    check(len(est) == len(slam.timestamps()),
+          f"{name}: the trajectory file and the session disagree")
+    ie, ig = evaluate.match_timestamps(ts, seq.timestamps)
+    ate = evaluate.ate_rmse(est[ie], seq.poses_twc[ig], align_scale=mono) \
+        if len(ie) >= 3 else float("inf")
+    n_frames, n_kf = len(seq.timestamps), int(slam.state.n_kf)
+    n_close = int(tracking.need_close_frames)
+    made = "" if mono else (
+        f", close depth points made {int(mapping.close_depth_points)} (of "
+        f"{int(mapping.depth_points)} depth points)")
+    cam = slam.cfg.camera
+    print(f"{name}: {n_frames} frames of {cam.width}x{cam.height}, "
+          f"{slam.cfg.orb.n_features} features, in {wall:.2f} s: tracked "
+          f"{len(ie)}/{n_frames}, {'scale-aligned' if mono else 'metric'} "
+          f"ATE {ate:.6f} m, keyframes {n_kf}, map points "
+          f"{int(slam.state.n_mp)} ("
+          + ("no JAX reference" if jax_ref is None else
+             f"JAX on the CPU: ATE {jax_ref[0]} m, {jax_ref[1]} keyframes")
+          + f"); need_close fired on {n_close} "
+          f"frames{made}; image read {read_ms:.2f} ms a frame (host), "
+          f"{_frame_ms(slam)}; launches {launches} "
+          f"({launches['fast_nms'] / n_frames:.2f} FAST over "
+          f"{fast_planes // max(launches['fast_nms'], 1)} planes, "
+          f"{launches['pose_lm'] / n_frames:.2f} pose LM a frame), "
+          f"{slam.graph_replays} graph replays; peak memory "
+          f"{peak / 2**30:.3f} GiB; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    print("".join(f"  | {ln}\n" for ln in log.getvalue().splitlines()),
+          end="", flush=True)
+    _check_program(name, slam, launches, fast_planes)
+    tracked_min = TRACKED_MIN_FRAC if mono else DEPTH_TRACKED_MIN_FRAC
+    check(len(ie) >= tracked_min * n_frames,
+          f"{name}: tracked {len(ie)}/{n_frames}")
+    gate = ATE_GATE_M if mono else DEPTH_ATE_GATE_M["stereo"]
+    if jax_ref is not None:
+        gate = min(gate, jax_ref[0] + JAX_ATE_MARGIN_M)
+        check(abs(n_kf - jax_ref[1]) <= JAX_KF_MARGIN,
+              f"{name}: {n_kf} keyframes (JAX {jax_ref[1]})")
+    check(ate <= gate, f"{name}: ATE {ate} m > {gate} m")
+    check(not need_close or (n_close > 0 and
+                             int(mapping.close_depth_points) > 0),
+          f"{name}: need_close fired on {n_close} frames")
+    best = None
+    if record:
+        n_stereo = [int((a[5] & a[6]).sum()) for a in recorded]
+        best = recorded[int(np.argmax(n_stereo))]
+    return launches, best
 
 
 def phase_batch(SLAM, cfg, seq, counters):
@@ -2056,6 +2467,7 @@ def phase_one_program(SLAM, cfg, st_cfg, rgbd_cfg, seq, st_seq, right,
 
 
 def main() -> int:
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false")
     try:
@@ -2115,9 +2527,13 @@ def main() -> int:
             synthetic.xyz_trajectory(STEREO_FRAMES), st_cfg.camera.baseline))
     kitti_f = render.submit(kitti_sequence, synthetic, kitti_cam)
     render.shutdown(wait=False)
-    # phase 18's sequences, in two processes of their own
+    # phases 21 and 23-24's scenes and phase 18's sequences, in two
+    # processes of their own (the scenes first: their phases run first)
     dp_render = ProcessPoolExecutor(
         2, mp_context=multiprocessing.get_context("spawn"))
+    lens_f = dp_render.submit(lens_sequence, config.tum1_config().camera)
+    euroc_f = [dp_render.submit(euroc_eye, side)
+               for side in ("LEFT", "RIGHT")]
     dp_f = [dp_render.submit(synthetic.generate, rgbd_cfg.camera,
                              n_frames=DP_FRAMES, n_points=500,
                              trajectory="xyz", seed=s)
@@ -2263,6 +2679,38 @@ def main() -> int:
             del kslam
             launches["tum_cli"] = phase_tum(port_cli, evaluate, counters,
                                             st_seq, rgbd_cfg.camera, tmp)
+
+            # 21-24: the example paths no phase above drives
+            ex = (port_cli, mapping, tracking, evaluate, counters, tmp)
+            t0 = time.perf_counter()
+            lseq = lens_f.result()
+            eseq, eright = euroc_f[0].result(), euroc_f[1].result()
+            print(f"lens and EuRoC scenes rendered "
+                  f"({time.perf_counter() - t0:.1f} s waited)", flush=True)
+            launches["tum_mono_cli"], _ = phase_example(
+                "TUM mono with the fr1 lens via the CLI", "tum_mono_cli",
+                *ex, lseq, "tum", "mono", os.path.join(tmp, "tum_fr1"),
+                tum_settings(config.tum1_config().camera), JAX_TUM_MONO,
+                write=lambda root: write_tum_mono_dir(root, lseq))
+            del lseq
+            launches["kitti_mono_cli"], _ = phase_example(
+                "KITTI mono via the CLI", "kitti_mono_cli", *ex, kseq,
+                "kitti", "mono", kroot, KITTI_SETTINGS, JAX_KITTI_MONO)
+            eroot = os.path.join(tmp, "euroc_mav")
+            launches["euroc_stereo_cli"], euroc_problem = phase_example(
+                "EuRoC stereo via the CLI", "euroc_stereo_cli", *ex, eseq,
+                "euroc", "stereo", eroot, EUROC_STEREO_SETTINGS,
+                JAX_EUROC_STEREO, write=lambda root: write_euroc_dir(
+                    root, eseq, eright), record=True, need_close=True)
+            launches["euroc_mono_cli"], _ = phase_example(
+                "EuRoC mono via the CLI", "euroc_mono_cli", *ex, eseq,
+                "euroc", "mono", eroot, EUROC_MONO_SETTINGS, JAX_EUROC_MONO)
+            # the first frame pair as the stereo reader rectifies it
+            epair = next(iter(datasets.SequenceReader(
+                datasets.load_euroc_stereo(eroot)[:1], "stereo",
+                rectify=datasets.euroc_rectify_maps(
+                    os.path.join(tmp, "euroc_stereo_cli.yaml")))))[:2]
+            del eseq, eright
         launches["batch"] = phase_batch(SLAM, cfg, seq, counters)
 
         # 16. the per-level extractor at full width
@@ -2283,11 +2731,26 @@ def main() -> int:
         _, kitti_atlas = build_atlas_extractor(
             config.kitti_config().orb, kitti_cam.height, kitti_cam.width,
             "cuda", n_images=2, return_atlas=True)(kpair)
-        rows += check_fast(fast_cuda, [(
-            "KITTI stereo pair 1241x376",
-            level_shapes(kitti_cam.height, kitti_cam.width), 2,
-            kitti_atlas)])
-        check(rows[-1]["exact"], "fast_nms disagrees on the KITTI atlas")
+        # and on the atlases of phase 22's first KITTI mono frame (as its
+        # PNG reads back) and of phase 23's first rectified EuRoC pair
+        euroc_orb = config.euroc_config().orb
+        _, kmono_atlas = build_atlas_extractor(
+            config.kitti_config().orb, kitti_cam.height, kitti_cam.width,
+            "cuda", return_atlas=True)(torch.as_tensor(
+                _u8(kseq.images[0]), dtype=torch.float32).cuda())
+        _, euroc_atlas = build_atlas_extractor(
+            euroc_orb, 480, 752, "cuda", n_images=2, return_atlas=True)(
+            torch.stack([torch.as_tensor(x) for x in epair]).cuda())
+        rows += check_fast(fast_cuda, [
+            ("KITTI stereo pair 1241x376",
+             level_shapes(kitti_cam.height, kitti_cam.width), 2, kitti_atlas),
+            ("KITTI mono 1241x376",
+             level_shapes(kitti_cam.height, kitti_cam.width), 1, kmono_atlas),
+            ("EuRoC stereo pair 752x480", pyramid.level_shapes(
+                480, 752, euroc_orb.n_levels, euroc_orb.scale_factor), 2,
+             euroc_atlas)])
+        check(all(r["exact"] for r in rows[-3:]),
+              "fast_nms disagrees on the KITTI or EuRoC atlases")
 
         # 18. S RGB-D sequences stepped together, 19. the sharded solvers
         t0 = time.perf_counter()
@@ -2315,7 +2778,9 @@ def main() -> int:
             (name_, tuple(a[None] for a in prob[:7]) + tuple(prob[7:]))
             for name_, prob in (("stereo frame of phase 9", st_problem),
                                 ("KITTI frame of phase 12, N = 2048",
-                                 kitti_problem))])
+                                 kitti_problem),
+                                ("EuRoC stereo frame of phase 23",
+                                 euroc_problem))])
 
         # 7 (again). the loop scenario at the end of the process
         phase_loop_again(SLAM, e2e_small_cfg(config), synthetic, evaluate,
@@ -2353,6 +2818,9 @@ def main() -> int:
         "bound_ms": frame_row["bound_ms"],
         "bound_by": frame_row["bound_by"],
         "library_ms": None,
+        # each atlas of phase 3: device ms a launch and its bound
+        "atlas_device_ms": {r["name"]: r["device_ms"] for r in rows},
+        "atlas_bound_ms": {r["name"]: r["bound_ms"] for r in rows},
     }, {
         "name": "pose_lm", "route": "cuda",
         "source": "orb_slam2_tpu_torch/csrc/pose_lm.cu",
@@ -2369,7 +2837,11 @@ def main() -> int:
         "bound_by": main_row["bound_by"],
         # no single PyTorch call computes a robust LM pose optimization
         "library_ms": None,
+        # each problem of phase 4: device ms a launch and its bound
+        "problem_device_ms": {r["name"]: r["device_ms"] for r in pose_rows},
+        "problem_bound_ms": {r["name"]: r["bound_ms"] for r in pose_rows},
     }]
+    print(f"whole run: {time.perf_counter() - t_run:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,7 @@ and the synthetic sequence behind one entry point:
 
     tpu-slam-torch run --dataset tum --sensor mono --path <seq> [--settings x.yaml]
     tpu-slam-torch run --dataset kitti --sensor stereo --path <seq> --settings KITTI00-02.yaml
+    tpu-slam-torch run --dataset euroc --sensor stereo --path <seq> --settings EuRoC.yaml
     tpu-slam-torch run --dataset synthetic --sensor mono --frames 120
     tpu-slam-torch view --map map.npz --traj CameraTrajectory.txt --out map.png
     tpu-slam-torch bench [--device cpu]
@@ -12,7 +13,9 @@ and the synthetic sequence behind one entry point:
 `run` and `bench` run on the CUDA card unless `--device` names another
 device; `bench` is orb_slam2_tpu_torch/bench.py (one JSON line).  The
 trajectory goes to `--output` (default CameraTrajectory.txt) in TUM format,
-or in KITTI format for `--dataset kitti`.  `view` renders a saved map (the
+or in KITTI format for `--dataset kitti`.  EuRoC stereo rectifies both
+raw images on the host by the settings' LEFT/RIGHT blocks; EuRoC mono
+reads cam0 raw under the settings' lens.  `view` renders a saved map (the
 npz of `SLAM.save_map`, either package's) with an optional TUM trajectory,
 or the trajectory alone, to a PNG on the host.
 """
@@ -98,8 +101,12 @@ def cmd_run(args):
             items = datasets.load_kitti_stereo(args.path)
         else:
             items = datasets.load_euroc_stereo(args.path)
+        # the stereo pair is rectified on the host by the settings'
+        # LEFT/RIGHT blocks (stereo_euroc.cc); mono_euroc reads cam0 raw
+        # under its own lens model, whose settings have no such blocks
         rectify = None
-        if args.dataset == "euroc" and args.settings:
+        if args.dataset == "euroc" and args.sensor == "stereo" and \
+                args.settings:
             rectify = datasets.euroc_rectify_maps(args.settings)
         reader = datasets.SequenceReader(
             items, args.sensor, depth_factor=cfg.camera.depth_map_factor,

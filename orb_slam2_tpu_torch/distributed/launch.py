@@ -2,15 +2,16 @@
 counterpart of scripts/launch_multihost.py).
 
     python -m orb_slam2_tpu_torch.distributed.launch --nprocs 2 \\
-        --backend gloo --device cpu
+        --backend gloo [--device cpu]
 
 spawns N ranks with torch.multiprocessing, each with SLAM_COORDINATOR /
 SLAM_NUM_PROCS / SLAM_PROC_ID set so that `init_multihost` joins them,
 and runs one landmark-sharded BA (8 cameras x 1024 points, point-major)
 over all of them; every rank prints a checksum of its replicated cameras,
-which must agree.  With `--device cuda` the ranks take the cards in turn;
-two ranks on one card need `--backend gloo` (NCCL refuses two ranks on a
-device).
+which must agree.  The ranks run on the CUDA cards, taken in turn, unless
+`--device cpu` is given; without a card and without `--device cpu` the
+launch raises.  Two ranks on one card need `--backend gloo` (NCCL refuses
+two ranks on a device).
 
 `spawn` and `solve_worker` are the pieces the tests and chip_smoke.py
 use: `solve_worker` runs a list of jobs (observation-sharded BA,
@@ -35,7 +36,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from orb_slam2_tpu_torch import convert
+from orb_slam2_tpu_torch import convert, resolve_device
 from orb_slam2_tpu_torch.ba import local as ba_local
 from orb_slam2_tpu_torch.core import camera, lie
 from orb_slam2_tpu_torch.distributed.ba import (distributed_ba_solve,
@@ -270,7 +271,7 @@ def _collective_clock(sync, log):
 
 
 def solve_worker(rank: int, nprocs: int, jobs, out_dir: str,
-                 device: str = "cpu", backend: str = "gloo",
+                 device: str | None = None, backend: str = "gloo",
                  repeats: int = 1, clock_collectives: bool = False) -> None:
     """Join the group (`init_multihost` from the SLAM_* env vars), run
     each job `repeats` times, and write `rank{r}.npz` into `out_dir`:
@@ -278,11 +279,12 @@ def solve_worker(rank: int, nprocs: int, jobs, out_dir: str,
     each repeat (device synchronised); with `clock_collectives`, also
     `{job}.allreduce_ms`, the time of each all-reduce of one more solve
     with every collective timed; `timeline`, the epoch seconds at which
-    the rank started work, joined the group and ended each job."""
+    the rank started work, joined the group and ended each job.  `device`
+    None: the CUDA cards (`resolve_device`: raises without one)."""
     timeline = [time.time()]
-    if device == "cpu":
+    dev = resolve_device(device)
+    if dev.type == "cpu":
         torch.set_num_threads(1)
-        dev = torch.device("cpu")
     else:
         dev = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
@@ -337,10 +339,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nprocs", type=int, default=2)
     ap.add_argument("--backend", choices=("gloo", "nccl"), default="gloo")
-    ap.add_argument("--device", default="cpu", help="cpu or cuda")
+    ap.add_argument("--device", default=None,
+                    help="cpu or cuda (default: the CUDA cards)")
     ap.add_argument("--timeout", type=float, default=RANK_TIMEOUT_S)
     args = ap.parse_args(argv)
-    spawn(_print_checksum, args.nprocs, (args.device, args.backend),
+    # resolved here, so that a missing card fails before any rank starts
+    device = resolve_device(args.device).type
+    spawn(_print_checksum, args.nprocs, (device, args.backend),
           timeout=args.timeout)
     print("multihost run OK")
     return 0

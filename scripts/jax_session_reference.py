@@ -1,9 +1,12 @@
 """The JAX package on the session scenarios of the port's `chip_smoke.py`
-phases 11-14, on the CPU: the reference their thresholds are held against.
+phases 11-14 and 21-24, on the CPU: the reference their thresholds are
+held against.
 
     JAX_PLATFORMS=cpu python scripts/jax_session_reference.py \
-        [mono_loc] [kitti] [tum] [--kitti-trajectory xyz|forward] \
-        [--kitti-frames N]
+        [mono_loc] [kitti] [tum] [tum_mono] [kitti_mono] [euroc_stereo] \
+        [euroc_mono] [--kitti-trajectory xyz|forward] [--kitti-frames N]
+
+(no scenario named: the first three)
 
 Each scenario runs on the very images the port's phase sees: the sequences
 are rendered by the port's numpy renderer and written to disk by
@@ -21,7 +24,20 @@ package.
   loaded into a fresh session in localisation mode over part of it;
 - tum (phase 14): the bench's stereo sequence (bf 40, 60 frames) as a TUM
   RGB-D directory, `tpu-slam run --dataset tum --sensor rgbd`, and the
-  keyframe trajectory file.
+  keyframe trajectory file;
+- tum_mono (phase 21): the bench mono scene through TUM1's fr1 lens as a
+  TUM directory, `tpu-slam run --dataset tum --sensor mono` with the lens
+  in the settings;
+- kitti_mono (phase 22): the kitti scenario's directory, `--sensor mono`
+  with the same settings;
+- euroc_stereo (phase 23): a room at the EuRoC rig written as raw
+  distorted cam0/cam1 images, `tpu-slam run --dataset euroc --sensor
+  stereo` with the reference's EuRoC.yaml (rectified on the host);
+- euroc_mono (phase 24): that directory's cam0 under the reference's
+  monocular EuRoC.yaml (cam0's own lens).  The JAX CLI builds the
+  rectification maps for every EuRoC run given settings, and those
+  settings have no LEFT/RIGHT blocks, so this scenario feeds the JAX
+  package's loader and reader to its session as the CLI would.
 
 Prints one dict per scenario: frames tracked, ATE, keyframes, map points,
 CPU wall time.
@@ -165,6 +181,86 @@ def tum(tmp):
                 map_points=int(slam.state.n_mp), cpu_wall_s=wall)
 
 
+def _scored(name, slam, seq, ts, est, mono, wall):
+    ie, ig = evaluate.match_timestamps(ts, seq.timestamps)
+    kv = np.asarray(slam.state.kf_valid)
+    return dict(scenario=name, frames=len(seq.timestamps), tracked=len(ie),
+                ate_m=float(evaluate.ate_rmse(est[ie], seq.poses_twc[ig],
+                                              align_scale=mono)),
+                keyframes=int(slam.state.n_kf),
+                keyframe_frames=np.asarray(slam.state.kf_frame_id)[kv]
+                .tolist(), map_points=int(slam.state.n_mp), cpu_wall_s=wall)
+
+
+def _cli(name, tmp, seq, dataset, sensor, root, settings):
+    """`tpu-slam run` on `root` with the settings text `settings`; the
+    trajectory file scored against `seq`."""
+    yaml = os.path.join(tmp, f"{name}.yaml")
+    with open(yaml, "w") as f:
+        f.write(settings)
+    out = os.path.join(tmp, f"{name}_traj.txt")
+    made = _sessions()
+    t0 = time.perf_counter()
+    cli.main(["run", "--dataset", dataset, "--sensor", sensor, "--path",
+              root, "--settings", yaml, "--output", out])
+    wall = time.perf_counter() - t0
+    slam = made[-1]
+    if dataset == "kitti":
+        ts, est = slam.timestamps(), chip_smoke.read_kitti_positions(out)
+    else:
+        ts, est = chip_smoke.read_tum_positions(out)
+    return _scored(name, slam, seq, ts, est, sensor == "mono", wall)
+
+
+def tum_mono(tmp):
+    cam = tconfig.tum1_config().camera
+    seq = chip_smoke.lens_sequence(cam)
+    root = os.path.join(tmp, "tum_fr1")
+    chip_smoke.write_tum_mono_dir(root, seq)
+    return _cli("tum_mono", tmp, seq, "tum", "mono", root,
+                chip_smoke.tum_settings(cam))
+
+
+def kitti_mono(tmp, trajectory, n_frames):
+    seq, right = chip_smoke.kitti_sequence(
+        tsynthetic, tconfig.kitti_config().camera, n_frames, trajectory)
+    root = os.path.join(tmp, "kitti_00")
+    chip_smoke.write_kitti_dir(root, seq, right)
+    res = _cli("kitti_mono", tmp, seq, "kitti", "mono", root,
+               chip_smoke.KITTI_SETTINGS)
+    return dict(res, trajectory=trajectory)
+
+
+def _euroc_dir(tmp):
+    seq = chip_smoke.euroc_eye("LEFT")
+    root = os.path.join(tmp, "euroc_mav")
+    if not os.path.isdir(root):
+        chip_smoke.write_euroc_dir(root, seq, chip_smoke.euroc_eye("RIGHT"))
+    return seq, root
+
+
+def euroc_stereo(tmp):
+    seq, root = _euroc_dir(tmp)
+    return _cli("euroc_stereo", tmp, seq, "euroc", "stereo", root,
+                chip_smoke.EUROC_STEREO_SETTINGS)
+
+
+def euroc_mono(tmp):
+    seq, root = _euroc_dir(tmp)
+    yaml = os.path.join(tmp, "euroc_mono.yaml")
+    with open(yaml, "w") as f:
+        f.write(chip_smoke.EUROC_MONO_SETTINGS)
+    slam = system.SLAM(load_settings(yaml, config.MONOCULAR))
+    t0 = time.perf_counter()
+    items = datasets.load_euroc_stereo(root)
+    for img, t in datasets.SequenceReader(items, "mono"):
+        slam.track_mono(img, t)
+    slam.flush()
+    wall = time.perf_counter() - t0
+    return _scored("euroc_mono", slam, seq, slam.timestamps(),
+                   slam.poses_twc()[:, 4:], True, wall)
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("which", nargs="*", default=["mono_loc", "kitti", "tum"])
@@ -175,8 +271,11 @@ if __name__ == "__main__":
     args = ap.parse_args()
     with tempfile.TemporaryDirectory(dir=ROOT, prefix="_smoke_") as tmp:
         for which in args.which:
-            if which == "kitti":
-                res = kitti(tmp, args.kitti_trajectory, args.kitti_frames)
+            if which in ("kitti", "kitti_mono"):
+                res = {"kitti": kitti, "kitti_mono": kitti_mono}[which](
+                    tmp, args.kitti_trajectory, args.kitti_frames)
             else:
-                res = {"mono_loc": mono_loc, "tum": tum}[which](tmp)
+                res = {"mono_loc": mono_loc, "tum": tum,
+                       "tum_mono": tum_mono, "euroc_stereo": euroc_stereo,
+                       "euroc_mono": euroc_mono}[which](tmp)
             print(res, flush=True)

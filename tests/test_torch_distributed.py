@@ -318,3 +318,17 @@ def test_spawn_kills_ranks_past_their_timeout():
     with pytest.raises(TimeoutError):
         launch.spawn(launch.solve_worker, 2, ([], "/nonexistent", "cpu",
                                               "gloo"), timeout=0.2)
+
+
+def test_launcher_runs_on_the_card_unless_asked_for_the_cpu(capsys):
+    """`python -m orb_slam2_tpu_torch.distributed.launch` without
+    `--device` runs on the CUDA cards, and raises before any rank starts
+    when there is none; with `--device cpu` its 2 gloo ranks run the
+    landmark-sharded BA and agree on the checksum."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            launch.main(["--nprocs", "2", "--backend", "gloo"])
+    assert launch.main(["--nprocs", "2", "--backend", "gloo", "--device",
+                        "cpu", "--timeout", "300"]) == 0
+    out = capsys.readouterr().out
+    assert "multihost run OK" in out

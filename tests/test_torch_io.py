@@ -1,7 +1,8 @@
 """The port's input/output layer against the JAX package and OpenCV, on the
 CPU: settings YAML, PNG reading, EuRoC rectification, the dataset
 loaders, the ORBvoc text format and vocabulary training, and the
-command-line entry point on small TUM-mono and KITTI directories.
+command-line entry point on small TUM-mono (a pinhole and the fr1 lens),
+KITTI and EuRoC directories.
 
 The port reads images without OpenCV; this machine has OpenCV, so every
 reader is held against it on files OpenCV writes (and, for the PNG
@@ -10,6 +11,7 @@ their reasons stand in each test.
 """
 
 import dataclasses
+import importlib.util
 import os
 import struct
 import time
@@ -31,8 +33,11 @@ from orb_slam2_tpu_torch import native_build
 from orb_slam2_tpu_torch.io import datasets as tdatasets
 from orb_slam2_tpu_torch.io import png
 from orb_slam2_tpu_torch.io.settings import load_settings as tload_settings
+from orb_slam2_tpu_torch.core import camera as tcamera
 from orb_slam2_tpu_torch.io.settings import read_opencv_yaml
 from orb_slam2_tpu_torch.place import vocab as tvocab
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # tests/test_io_ingest.py's camera and YAML keys
 CAM = dict(fx=200.0, fy=200.0, cx=160.0, cy=120.0, width=320, height=240,
@@ -123,6 +128,54 @@ RIGHT.P:  !!opencv-matrix
           0, 435.2046959714599, 252.2008514404297, 0, 0, 0, 1, 0]
 """
 N_CLI = 24
+# the frames the fr1-lens and EuRoC CLI tests run (`--max-frames`), which
+# keeps them at ~40 s each
+N_CLI_SHORT = 16
+# the reference's Examples/Monocular/TUM1.yaml lens (config.tum1_config)
+FR1_LENS = dict(k1=0.262383, k2=-0.953104, p1=-0.005358, p2=0.002628,
+                k3=1.163314)
+
+
+def _chip_smoke():
+    """chip_smoke.py, whose EuRoC inverse-rectification writer the tests
+    share."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _yaml_matrix(key: str, m) -> str:
+    m = np.atleast_2d(np.asarray(m, np.float64))
+    return (f"{key}: !!opencv-matrix\n   rows: {m.shape[0]}\n   cols: "
+            f"{m.shape[1]}\n   dt: d\n   data: ["
+            + ", ".join(repr(float(x)) for x in m.ravel()) + "]\n")
+
+
+def _small_euroc_rig(euroc_yaml: str):
+    """The reference's EuRoC rig at the small camera: each side's D and R
+    as the reference's, P the small camera's (RIGHT.P at its bf), K the
+    reference's scaled as P is.  Returns ({side: (K, D, R, P)}, the YAML
+    blocks)."""
+    fs = read_opencv_yaml(euroc_yaml)
+    s = CAM["fx"] / fs["LEFT.P"][0, 0]
+    rig, text = {}, ""
+    for side, tx in (("LEFT", 0.0), ("RIGHT", -16.0)):
+        K0, P0 = fs[f"{side}.K"], fs[f"{side}.P"]
+        cx = CAM["cx"] + (K0[0, 2] - P0[0, 2]) * s
+        cy = CAM["cy"] + (K0[1, 2] - P0[1, 2]) * s
+        K = np.array([[K0[0, 0] * s, 0.0, cx], [0.0, K0[1, 1] * s, cy],
+                      [0.0, 0.0, 1.0]])
+        P = np.array([[CAM["fx"], 0.0, CAM["cx"], tx],
+                      [0.0, CAM["fy"], CAM["cy"], 0.0], [0.0, 0.0, 1.0, 0.0]])
+        rig[side] = (K, fs[f"{side}.D"], fs[f"{side}.R"], P)
+        text += (f"{side}.height: {CAM['height']}\n{side}.width: "
+                 f"{CAM['width']}\n" + _yaml_matrix(f"{side}.D", rig[side][1])
+                 + _yaml_matrix(f"{side}.K", K)
+                 + _yaml_matrix(f"{side}.R", rig[side][2])
+                 + _yaml_matrix(f"{side}.P", P))
+    return rig, text
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -428,12 +481,32 @@ def _items(xs):
     return [dataclasses.asdict(x) for x in xs]
 
 
+@pytest.fixture(scope="module")
+def euroc_full(tmp_path_factory):
+    """A EuRoC directory of two 752x480 frame pairs (rendered at the
+    rectified camera, written by cv2)."""
+    root = tmp_path_factory.mktemp("euroc_full")
+    cam = jconfig.CameraConfig(fx=435.2, fy=435.2, cx=367.5, cy=252.2,
+                               width=752, height=480)
+    imgs = synthetic.generate(cam, n_frames=2, n_points=4).images
+    for c, order in (("cam0", (0, 1)), ("cam1", (1, 0))):
+        os.makedirs(root / "mav0" / c / "data")
+        for i, k in enumerate(order):
+            cv2.imwrite(str(root / "mav0" / c / "data" /
+                            f"{1403636579763555584 + i * 50000000}.png"),
+                        np.clip(imgs[k], 0, 255).astype(np.uint8))
+    return root
+
+
 @pytest.mark.parametrize("name", ["tum_mono", "tum_rgbd", "tum_assoc",
-                                  "kitti", "euroc"])
-def test_loader_items_match_jax(layouts, name):
+                                  "kitti", "euroc", "euroc_rectified"])
+def test_loader_items_match_jax(layouts, request, name):
     """The same items (timestamps, paths); then the frames a
     SequenceReader yields: images and depth maps bit for bit against the
-    JAX reader's (cv2)."""
+    JAX reader's (cv2).  euroc_rectified: two 752x480 pairs rectified by
+    the maps of the reference's EuRoC blocks, within 1e-4 of cv2.remap
+    (as test_remap_matches_cv2; exact bilinear weights both, float32
+    rounding apart: measured 3.05e-5)."""
     tum = str(layouts / "tum")
     calls = {
         "tum_mono": ("load_tum_mono", (tum,), "mono"),
@@ -443,19 +516,33 @@ def test_loader_items_match_jax(layouts, name):
         "kitti": ("load_kitti_stereo", (str(layouts / "kitti"),), "stereo"),
         "euroc": ("load_euroc_stereo", (str(layouts / "euroc"),), "stereo"),
     }
+    rect = (None, None)
+    if name == "euroc_rectified":
+        yaml = request.getfixturevalue("euroc_yaml")
+        calls[name] = ("load_euroc_stereo",
+                       (str(request.getfixturevalue("euroc_full")),),
+                       "stereo")
+        rect = (tdatasets.euroc_rectify_maps(yaml),
+                jdatasets.euroc_rectify_maps(yaml))
     fn, args, sensor = calls[name]
     t_items = getattr(tdatasets, fn)(*args)
     j_items = getattr(jdatasets, fn)(*args)
     assert _items(t_items) == _items(j_items)
-    assert len(t_items) == {"tum_assoc": 4, "euroc": 5}.get(name, 6)
-    tr = tdatasets.SequenceReader(t_items, sensor, depth_factor=5000.0)
-    jr = jdatasets.SequenceReader(j_items, sensor, depth_factor=5000.0)
+    assert len(t_items) == {"tum_assoc": 4, "euroc": 5,
+                            "euroc_rectified": 2}.get(name, 6)
+    tr = tdatasets.SequenceReader(t_items, sensor, depth_factor=5000.0,
+                                  rectify=rect[0])
+    jr = jdatasets.SequenceReader(j_items, sensor, depth_factor=5000.0,
+                                  rectify=rect[1])
     n = 0
     for a, b in zip(tr, jr):
         n += 1
         assert len(a) == len(b)
         for x, y in zip(a, b):
-            np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+            if rect[0] is None:
+                np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+            else:
+                assert np.abs(np.asarray(x) - np.asarray(y)).max() <= 1e-4
             assert np.asarray(x).dtype == np.asarray(y).dtype
     assert n == len(t_items)
 
@@ -540,10 +627,16 @@ def test_native_orbvoc_parser_matches_python(tmp_path, descriptors):
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def cli_dirs(tmp_path_factory):
+def cli_dirs(tmp_path_factory, euroc_yaml):
     """A TUM-mono and a KITTI directory of N_CLI frames of the small
     configuration's room (JAX renderer, written by cv2), and the settings
-    file."""
+    file.  Beside them: tum_fr1/, the TUM sequence seen through the fr1
+    lens (each pixel sampled from the render at its undistorted position,
+    the port's `undistort_points`), with fr1.yaml; euroc/, the stereo pair
+    as the raw images of the reference's EuRoC rig at the small camera
+    (`_small_euroc_rig`: each raw pixel sampled from its eye's render at
+    the rectified pixel it sees, chip_smoke.py's `euroc_raw_positions`),
+    with euroc.yaml."""
     root = tmp_path_factory.mktemp("cli")
     cam = jconfig.CameraConfig(**CAM, bf=16.0)
     seq = synthetic.generate(cam, n_frames=N_CLI, n_points=300,
@@ -568,6 +661,38 @@ def cli_dirs(tmp_path_factory):
         "\n".join(f"{t:.6e}" for t in seq.timestamps) + "\n")
     yaml = root / "settings.yaml"
     yaml.write_text(SETTINGS)
+    # the fr1 lens: every undistorted position lies inside the render
+    W, H = CAM["width"], CAM["height"]
+    u, v = np.meshgrid(np.arange(W, dtype=np.float32),
+                       np.arange(H, dtype=np.float32))
+    g = tcamera.undistort_points(
+        torch.tensor([CAM["fx"], CAM["fy"], CAM["cx"], CAM["cy"]]),
+        torch.tensor([FR1_LENS[k] for k in ("k1", "k2", "p1", "p2", "k3")]),
+        torch.as_tensor(np.stack([u, v], -1))).numpy()
+    assert g.min() >= 0 and g[..., 0].max() <= W - 1 and \
+        g[..., 1].max() <= H - 1
+    os.makedirs(root / "tum_fr1" / "rgb")
+    for f in range(N_CLI):
+        cv2.imwrite(str(root / "tum_fr1" / f"rgb/{seq.timestamps[f]:.6f}.png"),
+                    u8(tdatasets.remap_bilinear(seq.images[f], g[..., 0],
+                                                g[..., 1])))
+    (root / "tum_fr1" / "rgb.txt").write_text("\n".join(lines) + "\n")
+    lens = "".join(f"Camera.{k}: {x}\n" for k, x in FR1_LENS.items())
+    (root / "fr1.yaml").write_text(SETTINGS.replace(
+        "Camera.k1: 0.0\nCamera.k2: 0.0\nCamera.p1: 0.0\nCamera.p2: 0.0\n",
+        lens))
+    # the EuRoC rig
+    rig, blocks = _small_euroc_rig(euroc_yaml)
+    raw_positions = _chip_smoke().euroc_raw_positions
+    for side, c, imgs in (("LEFT", "cam0", seq.images),
+                          ("RIGHT", "cam1", right)):
+        px, py = raw_positions(*rig[side], (W, H))
+        os.makedirs(root / "euroc" / "mav0" / c / "data")
+        for f in range(N_CLI):
+            cv2.imwrite(str(root / "euroc" / "mav0" / c / "data" /
+                            f"{round(seq.timestamps[f] * 1e9):019d}.png"),
+                        u8(tdatasets.remap_bilinear(imgs[f], px, py)))
+    (root / "euroc.yaml").write_text(SETTINGS + blocks)
     return root, seq, str(yaml)
 
 
@@ -618,3 +743,74 @@ def test_cli_kitti_stereo_matches_jax(cli_dirs, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tcli.main(args + ["--output", str(tmp_path / "x.txt")])
+
+
+def test_cli_tum_mono_with_lens_matches_jax(cli_dirs, tmp_path):
+    """`run --dataset tum --sensor mono` over the first N_CLI_SHORT frames
+    of the TUM sequence seen through the fr1 lens, the lens in the
+    settings (keypoints undistorted in the step):
+    test_cli_tum_mono_matches_jax's checks."""
+    root, seq, _ = cli_dirs
+    args = ["run", "--dataset", "tum", "--sensor", "mono", "--path",
+            str(root / "tum_fr1"), "--settings", str(root / "fr1.yaml"),
+            "--max-frames", str(N_CLI_SHORT)]
+    jcli.main(args + ["--output", str(tmp_path / "j.txt")])
+    slam = tcli.main(args + ["--output", str(tmp_path / "t.txt"),
+                             "--device", "cpu"])
+    assert slam.cfg.camera.k3 == FR1_LENS["k3"]
+    ja, jn = _tum_ate(tmp_path / "j.txt", seq, True)
+    ta, tn = _tum_ate(tmp_path / "t.txt", seq, True)
+    assert tn >= 0.7 * N_CLI_SHORT and jn >= 0.7 * N_CLI_SHORT, (tn, jn)
+    assert ta <= 0.03 and abs(ta - ja) <= 0.01, (ta, ja)
+
+
+def test_cli_euroc_stereo_matches_jax(cli_dirs, tmp_path):
+    """`run --dataset euroc --sensor stereo` over the first N_CLI_SHORT
+    raw distorted frame pairs, each package rectifying them on the host
+    by the settings' LEFT/RIGHT blocks: TUM files with the same frames
+    tracked and every pose entry within 2e-3, as
+    test_cli_kitti_stereo_matches_jax (the readers' images, 3e-5 apart,
+    flip no keypoint here: the entries measured 1.8e-5 apart at most),
+    and a metric ATE under test_stereo_e2e's 0.06 m."""
+    root, seq, _ = cli_dirs
+    args = ["run", "--dataset", "euroc", "--sensor", "stereo", "--path",
+            str(root / "euroc"), "--settings", str(root / "euroc.yaml"),
+            "--max-frames", str(N_CLI_SHORT)]
+    jcli.main(args + ["--output", str(tmp_path / "j.txt")])
+    tcli.main(args + ["--output", str(tmp_path / "t.txt"), "--device",
+                      "cpu"])
+    j, t = np.loadtxt(tmp_path / "j.txt"), np.loadtxt(tmp_path / "t.txt")
+    assert t.shape == j.shape and t.shape[1] == 8
+    assert t.shape[0] >= 0.9 * N_CLI_SHORT
+    np.testing.assert_allclose(t, j, rtol=0, atol=2e-3)
+    ta, _ = _tum_ate(tmp_path / "t.txt", seq, False)
+    assert ta <= 0.06, ta
+
+
+def test_cli_euroc_mono_reads_cam0_raw(cli_dirs, tmp_path):
+    """`run --dataset euroc --sensor mono` with settings in the form of
+    the reference's Monocular/EuRoC.yaml (cam0's own lens, no LEFT/RIGHT
+    blocks) reads cam0's raw images and builds no rectification maps: the
+    frames the session gets are the PNGs' pixels."""
+    root, seq, yaml = cli_dirs
+    mono_yaml = tmp_path / "mono.yaml"
+    mono_yaml.write_text(open(yaml).read().replace(
+        "Camera.k1: 0.0\nCamera.k2: 0.0\n",
+        "Camera.k1: -0.28340811\nCamera.k2: 0.07395907\n"))
+    seen = []
+    track = tcli._track
+    try:
+        tcli._track = lambda slam, sensor, data: (seen.append(data[0]),
+                                                  track(slam, sensor, data))
+        slam = tcli.main(["run", "--dataset", "euroc", "--sensor", "mono",
+                          "--path", str(root / "euroc"), "--settings",
+                          str(mono_yaml), "--output",
+                          str(tmp_path / "t.txt"), "--max-frames", "3",
+                          "--device", "cpu"])
+    finally:
+        tcli._track = track
+    assert slam.cfg.camera.k1 == -0.28340811 and len(seen) == 3
+    first = sorted(os.listdir(root / "euroc" / "mav0" / "cam0" / "data"))[0]
+    np.testing.assert_array_equal(
+        seen[0], cv2.imread(str(root / "euroc" / "mav0" / "cam0" / "data" /
+                                first), 0).astype(np.float32))
