@@ -7,7 +7,13 @@ keypoint n of keyframe k — is the single source of truth; observation
 counts, covisibility and the spanning tree derive from it.
 
 Updates are functional: each returns a new MapState and leaves its input
-untouched.  The helpers below and the map ops (`map/ops.py`) are written
+untouched, with one exception: `kf_bow`, whose table is GBs at the
+reference's 10^6 words, has its rows written in place (`seq_put_row_`,
+through `system.set_bow` and `mapping.cull_keyframe`).  Each of those
+writers takes the mask `on` [S] of the sequences it may write, because
+`seq_where(mask, new, old)` keeps an in-place write whatever the mask; and
+`system._dense` puts a gathered batch's in-place writes back.  The helpers
+below and the map ops (`map/ops.py`) are written
 over a leading sequence axis [S] on every field (the dp step's stacked
 states); one sequence's state goes through the same functions as S = 1
 (`one_or_many`).
@@ -45,7 +51,7 @@ class MapState(NamedTuple):
     covis: torch.Tensor        # [K, K] i32 shared-observation counts
     loop_edge: torch.Tensor    # [K, K] bool
     # --- place recognition (unused on the vocabulary-free mono path) ---
-    kf_bow: torch.Tensor       # [K, W] f32
+    kf_bow: torch.Tensor       # [K, W] f32, its rows written in place
     # --- map points (capacity M) ---
     mp_pos: torch.Tensor       # [M, 3]
     mp_valid: torch.Tensor     # [M] bool
@@ -218,6 +224,22 @@ def seq_put_row(t: torch.Tensor, k: torch.Tensor, v) -> torch.Tensor:
         v = torch.full(k.shape + t.shape[2:], v, dtype=t.dtype,
                        device=t.device)
     return t.index_put((seq_index(k), k.long()), v.to(t.dtype))
+
+
+def seq_put_row_(t: torch.Tensor, k: torch.Tensor, v, on
+                 ) -> torch.Tensor:
+    """`seq_put_row` in place, for a table too wide to copy a write (the
+    keyframes' BoW rows): row k[s] of sequence s set to v[s] where on[s]
+    holds (every sequence where `on` is None), the others' rows rewritten
+    with their own values.  Returns t."""
+    if not isinstance(v, torch.Tensor):
+        v = torch.full(k.shape + t.shape[2:], v, dtype=t.dtype,
+                       device=t.device)
+    idx = (seq_index(k), k.long())
+    v = v.to(t.dtype)
+    if on is not None:
+        v = torch.where(on.view((-1,) + (1,) * (v.dim() - 1)), v, t[idx])
+    return t.index_put_(idx, v)
 
 
 def seq_put_col(t: torch.Tensor, k: torch.Tensor, v) -> torch.Tensor:

@@ -29,8 +29,8 @@ from orb_slam2_tpu_torch.map.state import (MapState, covisible_neighbors,
                                            mask_from_ids, one_or_many,
                                            point_obs_count, seq_ids,
                                            seq_index, seq_put_col,
-                                           seq_put_row, seq_take, seq_where,
-                                           stable_topk,
+                                           seq_put_row, seq_put_row_,
+                                           seq_take, seq_where, stable_topk,
                                            update_covisibility_for_kf,
                                            weighted_obs_count)
 from orb_slam2_tpu_torch.matching import hamming, search
@@ -247,13 +247,15 @@ def cull_points(state: MapState, kf_id, cfg: SLAMConfig) -> MapState:
 
 
 @one_or_many
-def cull_keyframe(state: MapState, ts, c, cfg: SLAMConfig):
+def cull_keyframe(state: MapState, ts, c, cfg: SLAMConfig, on):
     """Invalidate keyframe c[s] of each sequence (reference
     KeyFrame::SetBadFlag): erase its observations (discarding points left
     with nObs <= 2), re-parent its children by max covisibility, store the
     relative pose, and retarget the trajectory records that referenced it
     to its parent.  `c`: ids >= 0 ([S], or an int / 0-d tensor for every
-    sequence).  Returns (state, ts)."""
+    sequence).  The BoW row is cleared in place, for the sequences where
+    `on` [S] holds (all where it is None): a caller that keeps some
+    sequences' old state names the others.  Returns (state, ts)."""
     S, K = state.kf_valid.shape
     M = state.mp_pos.shape[-2]
     dev = state.kf_pose.device
@@ -271,7 +273,7 @@ def cull_keyframe(state: MapState, ts, c, cfg: SLAMConfig):
     state = state._replace(
         kf_valid=seq_put_row(state.kf_valid, c, False),
         covis=seq_put_col(seq_put_row(state.covis, c, 0), c, 0),
-        kf_bow=seq_put_row(state.kf_bow, c, 0.0),
+        kf_bow=seq_put_row_(state.kf_bow, c, 0.0, on),
         kf_pose_rel=seq_put_row(state.kf_pose_rel, c, rel_cp))
     ids = torch.arange(K, device=dev)
     children = state.kf_parent == c[:, None]
@@ -336,7 +338,7 @@ def cull_redundant_keyframes(state: MapState, ts, kf_id,
     do = c >= 0 if active is None else (c >= 0) & active
     return control.cond(
         do.any(), lambda st, t: seq_where(
-            do, cull_keyframe(st, t, c.clamp(min=0), cfg), (st, t)),
+            do, cull_keyframe(st, t, c.clamp(min=0), cfg, do), (st, t)),
         control.identity, (state, ts))
 
 

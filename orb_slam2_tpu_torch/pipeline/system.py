@@ -57,7 +57,7 @@ from orb_slam2_tpu_torch.config import MONOCULAR, RGBD, STEREO, SLAMConfig
 from orb_slam2_tpu_torch.core import control, lie
 from orb_slam2_tpu_torch.map import checkpoint, ops
 from orb_slam2_tpu_torch.map.state import (MapState, empty_map, first_flagged,
-                                           one_or_many, seq_ids, seq_put_row,
+                                           one_or_many, seq_ids, seq_put_row_,
                                            seq_where)
 from orb_slam2_tpu_torch.pipeline import frame as frame_mod
 from orb_slam2_tpu_torch.pipeline import init as init_mod
@@ -78,10 +78,13 @@ DEFAULT_VOCAB = os.path.join(os.path.dirname(os.path.dirname(
 
 
 @one_or_many
-def set_bow(state: MapState, kf, bow: torch.Tensor) -> MapState:
-    """Keyframe kf[s]'s BoW vector bow [S, W]."""
+def set_bow(state: MapState, kf, bow: torch.Tensor, on) -> MapState:
+    """Keyframe kf[s]'s BoW vector bow [S, W], for the sequences where
+    on [S] holds (all where it is None), written into the table in place
+    (at the reference's 10^6 words a copy of the table is GBs)."""
     k = seq_ids(kf, state.kf_bow.shape[0], bow.device)
-    return state._replace(kf_bow=seq_put_row(state.kf_bow, k, bow))
+    seq_put_row_(state.kf_bow, k, bow, on)
+    return state
 
 
 def n_stages(cfg: SLAMConfig) -> int:
@@ -155,8 +158,13 @@ def _dense(on, fn, A, *ops):
     take = lambda x: x.index_select(0, idx) if isinstance(
         x, torch.Tensor) else x
     sub = pytree.tree_map(take, ops)
+    # a field fn wrote in place (a BoW row) goes back too
+    version = {id(x): x._version for x in pytree.tree_leaves(sub)
+               if isinstance(x, torch.Tensor)}
     new = seq_where(keep, fn(*sub, keep), sub)
-    put = lambda x, m, s: x if m is s else x.index_copy(0, idx, m)
+    put = lambda x, m, s: x if m is s and (
+        not isinstance(s, torch.Tensor) or s._version == version[id(s)]
+    ) else x.index_copy(0, idx, m)
     return pytree.tree_map(put, ops, new, sub)
 
 
@@ -257,7 +265,8 @@ def build_full_step(cfg: SLAMConfig, device=None, transform=None,
                 st, t = insert_kf(st, t, frame, cur_pids, cfg)
                 if transform is not None:
                     st = set_bow(st, t.ref_kf,
-                                 transform(frame.desc, frame.valid)[0])
+                                 transform(frame.desc, frame.valid)[0],
+                                 None)
                 return st, t
 
             state, ts = control.cond(need, do_kf, control.identity,
@@ -750,7 +759,7 @@ class SLAM:
                 if self._transform is not None:
                     state = set_bow(state, ts.ref_kf.long(),
                                     self._transform(frame.desc,
-                                                    frame.valid)[0])
+                                                    frame.valid)[0], None)
                 self.state, self.ts = state, ts
                 self.status = OK
             return
@@ -781,9 +790,9 @@ class SLAM:
             ts = record_traj(state, ts, frame, True)
             if self._transform is not None:
                 state = set_bow(state, k1 - 1, self._transform(
-                    init_desc, init_valid)[0])
+                    init_desc, init_valid)[0], None)
                 state = set_bow(state, k1, self._transform(
-                    frame.desc, frame.valid)[0])
+                    frame.desc, frame.valid)[0], None)
             self.state, self.ts = state, ts
             self.status = OK
         # on failure keep the stored first frame and retry with the next

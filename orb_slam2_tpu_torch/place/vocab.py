@@ -116,6 +116,29 @@ def _load_orbvoc_python(path: str):
     return k, L, parents, leaves, descs, weights
 
 
+def _child_table(parents: np.ndarray, n: int, k: int) -> np.ndarray:
+    """[n, k] children of each node in file order (-1 none) from the
+    parent of each node 1..n-1."""
+    node_children = np.full((n, k), -1, np.int32)
+    order = np.argsort(parents, kind="stable")
+    by_parent = parents[order]
+    rank = np.arange(len(order)) - np.searchsorted(by_parent, by_parent)
+    node_children[by_parent, rank] = order + 1
+    return node_children
+
+
+def _depths(parents: np.ndarray) -> np.ndarray:
+    """Each node's depth (root 0) from the parent of each node 1..n-1, a
+    parent coming before its children in the file as DBoW2 writes them."""
+    dep = np.zeros(len(parents) + 1, np.int32)
+    for _ in range(len(parents)):
+        nxt = dep[parents] + 1
+        if np.array_equal(nxt, dep[1:]):
+            break
+        dep[1:] = nxt
+    return dep
+
+
 def load_orbvoc_text(path: str, levels_up: int = 4,
                      truncate_depth: Optional[int] = None,
                      native: Optional[bool] = None) -> Vocabulary:
@@ -150,19 +173,13 @@ def load_orbvoc_text(path: str, levels_up: int = 4,
     w_all = np.zeros((n,), np.float32)
     w_all[1:] = np.asarray(weights, np.float32)
 
-    node_children = np.full((n, k), -1, np.int32)
-    child_count = np.zeros((n,), np.int32)
-    for i, p in enumerate(parents, start=1):
-        node_children[p, child_count[p]] = i
-        child_count[p] += 1
+    node_children = _child_table(parents, n, k)
 
     depth = L
     is_leaf = np.zeros((n,), bool)
     is_leaf[1:] = leaves
     if truncate_depth is not None and truncate_depth < L:
-        dep = np.zeros((n,), np.int32)
-        for i, p in enumerate(parents, start=1):
-            dep[i] = dep[p] + 1
+        dep = _depths(parents)
         # each original leaf's weight goes up to its cut-depth ancestor
         anc = np.arange(n)
         for _ in range(L - truncate_depth):
@@ -186,24 +203,65 @@ def load_orbvoc_text(path: str, levels_up: int = 4,
                       max(depth - 2, 0))
 
 
+_TEXT_BLOCK_ROWS = 1 << 17     # ~20 MB of text rows laid out at once
+
+
 def save_orbvoc_text(vocab: Vocabulary, path: str) -> None:
     """Write the vocabulary in the DBoW2 text format (readable by the
     reference's loadFromTextFile): scoring L1_NORM (0), weighting TF_IDF
-    (0)."""
+    (0).  One line a node after the root,
+
+        <parent> <is_leaf> <32 descriptor bytes> <weight>
+
+    the weight as Python prints the float32 (0.0 for an internal node).
+    The lines are laid out as byte rows with numpy, _TEXT_BLOCK_ROWS nodes
+    at a time, each field right-aligned in a fixed width whose padding
+    bytes are then dropped."""
     n = vocab.node_children.shape[0]
+    ch = vocab.node_children
     parent = np.zeros((n,), np.int32)
-    for p in range(n):
-        for c in vocab.node_children[p]:
-            if c >= 0:
-                parent[c] = p
-    with open(path, "w") as f:
-        f.write(f"{vocab.k} {vocab.depth} 0 0\n")
-        for i in range(1, n):
-            leaf = 1 if vocab.word_id[i] >= 0 else 0
-            w = (vocab.word_weight[vocab.word_id[i]]
-                 if vocab.word_id[i] >= 0 else 0.0)
-            bytes_ = " ".join(str(int(b)) for b in vocab.node_desc[i])
-            f.write(f"{parent[i]} {leaf} {bytes_} {w}\n")
+    parent[ch[ch >= 0]] = np.nonzero(ch >= 0)[0]
+    leaf = vocab.word_id >= 0
+    # a weight's text once for each distinct float32 bit pattern
+    w = np.zeros((n,), np.float32)
+    w[leaf] = vocab.word_weight[vocab.word_id[leaf]]
+    bits, inv = np.unique(w.view(np.uint32), return_inverse=True)
+    w_txt = [f" {v}\n" if b else " 0.0\n"
+             for b, v in zip(bits.tolist(), bits.view(np.float32))]
+    w_tab = _text_table(w_txt)
+    byte_tab = _text_table([f" {b}" for b in range(256)])
+    p_width = len(str(max(n - 1, 0)))
+    with open(path, "wb") as f:
+        f.write(f"{vocab.k} {vocab.depth} 0 0\n".encode())
+        for lo in range(1, n, _TEXT_BLOCK_ROWS):
+            hi = min(lo + _TEXT_BLOCK_ROWS, n)
+            rows = np.concatenate([
+                _int_text(parent[lo:hi], p_width),
+                np.where(leaf[lo:hi, None], ord("1"), ord("0")
+                         ).astype(np.uint8),
+                byte_tab[vocab.node_desc[lo:hi]].reshape(hi - lo, -1),
+                w_tab[inv.reshape(-1)[lo:hi]]], axis=1)
+            f.write(rows[rows != 0].tobytes())
+
+
+def _text_table(texts) -> np.ndarray:
+    """[len(texts), width] uint8: each ASCII text right-aligned, 0 before
+    it."""
+    width = max(len(t) for t in texts)
+    tab = np.zeros((len(texts), width), np.uint8)
+    for i, t in enumerate(texts):
+        tab[i, width - len(t):] = np.frombuffer(t.encode(), np.uint8)
+    return tab
+
+
+def _int_text(x: np.ndarray, width: int) -> np.ndarray:
+    """[len(x), width + 1] uint8: the decimal digits of each x >= 0 and a
+    space, right-aligned, 0 before them."""
+    p = 10 ** np.arange(width - 1, -1, -1, dtype=np.int64)
+    x = x.astype(np.int64)[:, None]
+    digits = np.where((x >= p) | (p == 1), x // p % 10 + ord("0"), 0)
+    return np.concatenate([digits.astype(np.uint8),
+                           np.full((len(x), 1), ord(" "), np.uint8)], axis=1)
 
 
 # ---------------------------------------------------------------------------
@@ -285,7 +343,10 @@ def build_transform(vocab: Vocabulary, pad_to: Optional[int] = None,
 
     The descent takes, per level, the child whose centroid has the largest
     +-1 dot product with the descriptor: integers, exact in f32, with the
-    first child winning a tie as in JAX's argmax.  Each word's BoW entry is
+    first child winning a tie as in JAX's argmax.  The tree stays as the
+    npz holds it on the device (the centroids packed, 32 bytes a node, and
+    the child table int32: 79 MB for the reference's 1.1M nodes); each
+    level unpacks only the k children it gathers.  Each word's BoW entry is
     its count times its weight: an integer count is order-free, so two runs
     on the card agree bit for bit (a float scatter-add there would not).
 
@@ -295,8 +356,8 @@ def build_transform(vocab: Vocabulary, pad_to: Optional[int] = None,
         raise ValueError(
             f"vocabulary has {vocab.n_words} words > pad_to={pad_to}")
     device = resolve_device(device)
-    children = torch.as_tensor(vocab.node_children, device=device).long()
-    cpm1 = pm1_from_packed(torch.as_tensor(vocab.node_desc, device=device))
+    children = torch.as_tensor(vocab.node_children, device=device)
+    node_desc = torch.as_tensor(vocab.node_desc, device=device)
     wid = torch.as_tensor(vocab.word_id, device=device)
     weight = torch.as_tensor(vocab.word_weight, device=device)
     W = vocab.n_words
@@ -309,10 +370,11 @@ def build_transform(vocab: Vocabulary, pad_to: Optional[int] = None,
         node = torch.zeros(N, dtype=torch.int64, device=desc.device)
         node_lu = node
         for level in range(depth):
-            ch = children[node]                                  # [N, k]
+            ch = children[node].long()                           # [N, k]
             ch_ok = ch >= 0
             ch_safe = ch.clamp(min=0)
-            dots = torch.einsum('nb,nkb->nk', pm1, cpm1[ch_safe])
+            dots = torch.einsum('nb,nkb->nk', pm1,
+                                pm1_from_packed(node_desc[ch_safe]))
             dots = torch.where(ch_ok, dots, -1e9)
             best = torch.argmax(dots, dim=1)
             nxt = torch.gather(ch_safe, 1, best[:, None])[:, 0]
@@ -337,12 +399,44 @@ def build_transform(vocab: Vocabulary, pad_to: Optional[int] = None,
     return transform
 
 
-def l1_score(bow_a: torch.Tensor, bow_b: torch.Tensor) -> torch.Tensor:
-    """DBoW2 L1 score s = 1 - 0.5 |va - vb|_1, equal to sum min(va, vb) for
-    L1-normalized vectors.  Broadcasts over leading dims."""
+# the [rows, W] temporaries of a score over a keyframe table are bounded by
+# scoring at most this many bytes of table rows at once
+SCORE_CHUNK_BYTES = 1 << 28
+
+
+def _by_rows(score, bow_a: torch.Tensor, bow_b: torch.Tensor) -> torch.Tensor:
+    """score(bow_a, bow_b) over bow_b's rows in chunks of a fixed number
+    (SCORE_CHUNK_BYTES of them), for a query bow_a [1, W] or [W] against a
+    table bow_b [K, W]; other shapes in one call.  Each row's sum is the
+    same reduction whatever K is, and a table that fits in one chunk is
+    scored by the one call it always was."""
+    if bow_b.dim() != 2 or bow_a.dim() > 2 or (bow_a.dim() == 2 and
+                                                bow_a.shape[0] != 1):
+        return score(bow_a, bow_b)
+    K, W = bow_b.shape
+    rows = max(1, SCORE_CHUNK_BYTES // (bow_b.element_size() * max(W, 1)))
+    if K <= rows:
+        return score(bow_a, bow_b)
+    return torch.cat([score(bow_a, bow_b[i:i + rows])
+                      for i in range(0, K, rows)])
+
+
+def _l1(bow_a, bow_b):
     return 1.0 - 0.5 * torch.sum(torch.abs(bow_a - bow_b), dim=-1)
 
 
-def shared_words(bow_a: torch.Tensor, bow_b: torch.Tensor) -> torch.Tensor:
-    """Count of common words (the reference's inverted-file counting)."""
+def _shared(bow_a, bow_b):
     return torch.sum((bow_a > 0) & (bow_b > 0), dim=-1).to(torch.int32)
+
+
+def l1_score(bow_a: torch.Tensor, bow_b: torch.Tensor) -> torch.Tensor:
+    """DBoW2 L1 score s = 1 - 0.5 |va - vb|_1, equal to sum min(va, vb) for
+    L1-normalized vectors.  Broadcasts over leading dims; a query against
+    a keyframe table goes by chunks of rows (`_by_rows`)."""
+    return _by_rows(_l1, bow_a, bow_b)
+
+
+def shared_words(bow_a: torch.Tensor, bow_b: torch.Tensor) -> torch.Tensor:
+    """Count of common words (the reference's inverted-file counting); a
+    query against a keyframe table goes by chunks of rows."""
+    return _by_rows(_shared, bow_a, bow_b)

@@ -4,7 +4,8 @@ held against.
 
     JAX_PLATFORMS=cpu python scripts/jax_session_reference.py \
         [mono_loc] [kitti] [tum] [tum_mono] [kitti_mono] [euroc_stereo] \
-        [euroc_mono] [--kitti-trajectory xyz|forward] [--kitti-frames N]
+        [euroc_mono] [vocab_mono] [vocab_reloc] [vocab_loop] \
+        [--kitti-trajectory xyz|forward] [--kitti-frames N]
 
 (no scenario named: the first three)
 
@@ -37,13 +38,24 @@ package.
   monocular EuRoC.yaml (cam0's own lens).  The JAX CLI builds the
   rectification maps for every EuRoC run given settings, and those
   settings have no LEFT/RIGHT blocks, so this scenario feeds the JAX
-  package's loader and reader to its session as the CLI would.
+  package's loader and reader to its session as the CLI would;
+- vocab_mono, vocab_reloc, vocab_loop (phases 26-27): place recognition
+  at the JAX package's at-scale width.  `chip_smoke.wide_vocabulary`'s
+  k = 10, L = 6 tree is written in DBoW2's text format by the port's
+  writer and read by the JAX package's `load_orbvoc_text` with
+  truncate_depth = 5 (99,030 words), saved as the npz `SLAM(vocab_path=)`
+  reads, and the sessions run with `VocabConfig(depth=5)` (BoW width
+  10^5): the bench mono sequence (phase 5's, 120 frames); phase 6's
+  relocalisation scenario (did it recover); phase 7's loop at
+  test_e2e's small configuration, open and closed.
 
 Prints one dict per scenario: frames tracked, ATE, keyframes, map points,
 CPU wall time.
 """
 
 import argparse
+import dataclasses
+import hashlib
 import os
 import sys
 import tempfile
@@ -181,6 +193,108 @@ def tum(tmp):
                 map_points=int(slam.state.n_mp), cpu_wall_s=wall)
 
 
+def _vocab_npz(tmp):
+    """The wide tree's 10^5 truncation as JAX reads it, saved as npz."""
+    out = os.path.join(tmp, "vocab_1e5.npz")
+    if not os.path.exists(out):
+        from orb_slam2_tpu.place import vocab as jvocab
+        from orb_slam2_tpu_torch.place import vocab as tvocab
+        txt = os.path.join(tmp, "ORBvoc_wide.txt")
+        tvocab.save_orbvoc_text(chip_smoke.wide_vocabulary(
+            tvocab, tvocab.Vocabulary.load(os.path.join(
+                ROOT, "orb_slam2_tpu_torch", "data", "vocab_default.npz"))),
+            txt)
+        v = jvocab.load_orbvoc_text(txt, levels_up=2,
+                                    truncate_depth=chip_smoke.TRUNC_DEPTH)
+        assert v.n_words <= 10 ** chip_smoke.TRUNC_DEPTH, v.n_words
+        v.save(out)
+    return out
+
+
+def _at_1e5(cfg):
+    return cfg.replace(vocab=config.VocabConfig(
+        depth=chip_smoke.TRUNC_DEPTH))
+
+
+def vocab_mono(tmp):
+    """The bench mono sequence at 10^5 words, and with the default
+    vocabulary (10^4) beside it: BoW feeds only the loop and
+    relocalisation candidates, so where neither fires the two runs are
+    the same."""
+    seq = tsynthetic.generate(tconfig.SLAMConfig().camera,
+                              n_frames=chip_smoke.N_FRAMES, n_points=500,
+                              trajectory="xyz", seed=0)
+    out = []
+    for name, cfg, path in (
+            ("vocab_mono", _at_1e5(config.SLAMConfig()), _vocab_npz(tmp)),
+            ("vocab_mono_1e4", config.SLAMConfig(), None)):
+        slam = system.SLAM(cfg, vocab_path=path)
+        t0 = time.perf_counter()
+        for f in range(len(seq.images)):
+            slam.track_mono(seq.images[f], seq.timestamps[f])
+        slam.flush()
+        out.append(dict(_scored(name, slam, seq, slam.timestamps(),
+                                slam.poses_twc(), True,
+                                time.perf_counter() - t0),
+                        loop_kf=slam.last_loop_kf,
+                        poses_sha=_digest(slam.poses_twc())))
+    return out
+
+
+def _digest(a):
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+
+def vocab_reloc(tmp):
+    """Phase 6's scenario (`chip_smoke.phase_reloc`) at 10^5 words."""
+    cfg = _at_1e5(config.SLAMConfig())
+    cfg = cfg.replace(tracking=dataclasses.replace(cfg.tracking,
+                                                   max_frames_hint=6))
+    seq = tsynthetic.generate(tconfig.SLAMConfig().camera, n_frames=60,
+                              n_points=300, trajectory="xyz", seed=0)
+    t0 = time.perf_counter()
+    slam = system.SLAM(cfg, vocab_path=_vocab_npz(tmp))
+    for f in range(45):
+        slam.track_mono(seq.images[f], seq.timestamps[f])
+    slam.flush()
+    kfs, status45 = int(slam.state.n_kf), slam.status
+    blank = np.zeros_like(seq.images[0])
+    for k in range(4):
+        slam.track_mono(blank, seq.timestamps[45] + 0.001 * (k + 1))
+    slam.flush()
+    status_blind = slam.status
+    for f in range(38, 55):
+        slam.track_mono(seq.images[f], seq.timestamps[f])
+    slam.flush()
+    return dict(scenario="vocab_reloc", status_at_45=status45,
+                keyframes_at_45=kfs, status_blind=status_blind,
+                status_end=slam.status, recovered=slam.status == 2,
+                keyframes_end=int(slam.state.n_kf),
+                cpu_wall_s=time.perf_counter() - t0)
+
+
+def vocab_loop(tmp):
+    """Phase 7's loop (`chip_smoke.phase_loop`) at 10^5 words."""
+    cfg = _at_1e5(chip_smoke.e2e_small_cfg(config))
+    seq = tsynthetic.generate(cfg.camera, n_frames=chip_smoke.LOOP_FRAMES,
+                              n_points=300, trajectory="loop", seed=1,
+                              loop_revolutions=1.3)
+    out = dict(scenario="vocab_loop")
+    for name, loop in (("open", False), ("closed", True)):
+        t0 = time.perf_counter()
+        slam = system.SLAM(cfg, vocab_path=_vocab_npz(tmp),
+                           enable_loop_closing=loop)
+        for f in range(len(seq.images)):
+            slam.track_mono(seq.images[f], seq.timestamps[f])
+        slam.flush()
+        ate, n = _ate(slam, seq, True)
+        out.update({f"{name}_ate_m": ate, f"{name}_tracked": n,
+                    f"{name}_loop_kf": slam.last_loop_kf,
+                    f"{name}_keyframes": int(slam.state.n_kf),
+                    f"{name}_cpu_wall_s": time.perf_counter() - t0})
+    return out
+
+
 def _scored(name, slam, seq, ts, est, mono, wall):
     ie, ig = evaluate.match_timestamps(ts, seq.timestamps)
     kv = np.asarray(slam.state.kf_valid)
@@ -277,5 +391,7 @@ if __name__ == "__main__":
             else:
                 res = {"mono_loc": mono_loc, "tum": tum,
                        "tum_mono": tum_mono, "euroc_stereo": euroc_stereo,
-                       "euroc_mono": euroc_mono}[which](tmp)
+                       "euroc_mono": euroc_mono, "vocab_mono": vocab_mono,
+                       "vocab_reloc": vocab_reloc,
+                       "vocab_loop": vocab_loop}[which](tmp)
             print(res, flush=True)
