@@ -37,6 +37,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from orb_slam2_tpu_torch import cuda_build
+from orb_slam2_tpu_torch.core import spans
 
 SOURCE = cuda_build.source("graph_cond.cu")
 MAX_DEPTH = 6          # nesting depth of IF nodes a capture can take
@@ -294,7 +295,8 @@ def capture_program(run: Callable[[bool], None],
     buffers) runs eagerly with every branch warmed up (kernels loaded,
     caches and counters made; the counts put back), then `run(False)`
     (the program on its buffers, results written back in place) is
-    captured.  A failure raises: there is no eager fallback."""
+    captured.  A failure raises: there is no eager fallback.  The span
+    log's device anchor is set at its synchronisation."""
     with sync_allowed(device):
         snap = snapshot()
         with warmup():
@@ -302,6 +304,7 @@ def capture_program(run: Callable[[bool], None],
         restore(snap)
         body_streams(device)
         torch.cuda.synchronize(device)
+        spans.synced(device)
         g = torch.cuda.CUDAGraph()
         with capture(g, device):
             run(False)

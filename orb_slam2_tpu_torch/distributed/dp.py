@@ -25,7 +25,11 @@ too.  Eagerly (on the CPU, and with `capture=False`) the step's only host
 reads are the helpers' marked predicate reads.  On the card `DPProgram`
 captures the step as one CUDA graph at its first step and replays it, so
 the host reads nothing from `init` to the end of the run; the branches
-are IF nodes.
+are IF nodes.  Each step is a `step` span of the span log
+(`core/spans.py`, caused by its step number; the capture a `capture`
+span inside the first), with a device interval from an event before its
+input copies to one after its HUD copy, read at a later step once the
+card has passed it, or at `huds()`.
 
 The sequence axis needs no communication: `shard_batch` gives rank r of a
 process group its own block of sequences, `build_sharded_step` steps it
@@ -41,7 +45,6 @@ closing or relocalisation.
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import numpy as np
@@ -51,7 +54,7 @@ from torch.profiler import record_function
 
 from orb_slam2_tpu_torch import resolve_device
 from orb_slam2_tpu_torch.config import RGBD, SLAMConfig
-from orb_slam2_tpu_torch.core import control, lie
+from orb_slam2_tpu_torch.core import control, lie, spans
 from orb_slam2_tpu_torch.map.state import MapState, empty_map, seq_where
 from orb_slam2_tpu_torch.pipeline import frame as frame_mod
 from orb_slam2_tpu_torch.pipeline import init as init_mod
@@ -208,6 +211,7 @@ class DPProgram:
         self.steps = 0
         self.graph_replays = 0
         self.capture_s = None        # seconds the warm-up and capture took
+        #                              (its `capture` span)
         self._graph = None
 
     @property
@@ -240,23 +244,27 @@ class DPProgram:
 
     def init(self, img, depth):
         """Initialise each sequence on its first frame (eagerly, once)."""
-        self._put(img, depth, 0, 0.0)
-        with control.sync_allowed(self.device):
-            self._init_body((self._state, self._ts), self._img, self._depth)
+        with spans.span("init", 0, self.device):
+            self._put(img, depth, 0, 0.0)
+            with control.sync_allowed(self.device):
+                self._init_body((self._state, self._ts), self._img,
+                                self._depth)
 
     def step(self, img, depth, fid, t):
         """One frame of every sequence: images and depth maps [S, H, W],
         frame ids and timestamps [S] (or one number for all)."""
-        self._put(img, depth, fid, t)
-        if not self.capture:
-            self._step_body((self._state, self._ts), self._img, self._depth,
-                            self._fid, self._t, self._hud)
-        else:
-            if self._graph is None:
-                self._graph = self._capture_program()
-            self._graph.replay()
-            self.graph_replays += 1
-        self._huds[self.steps % self._huds.shape[0]].copy_(self._hud)
+        spans.ready()
+        with spans.span("step", self.steps, self.device):
+            self._put(img, depth, fid, t)
+            if not self.capture:
+                self._step_body((self._state, self._ts), self._img,
+                                self._depth, self._fid, self._t, self._hud)
+            else:
+                if self._graph is None:
+                    self._graph = self._capture_program()
+                self._graph.replay()
+                self.graph_replays += 1
+            self._huds[self.steps % self._huds.shape[0]].copy_(self._hud)
         self.steps += 1
 
     def _capture_program(self) -> torch.cuda.CUDAGraph:
@@ -271,9 +279,9 @@ class DPProgram:
             self._step_body(stacked, self._img, self._depth, self._fid,
                             self._t, hud)
 
-        t0 = time.perf_counter()
-        g = control.capture_program(run, self.device)
-        self.capture_s = time.perf_counter() - t0
+        with spans.span("capture") as sp:
+            g = control.capture_program(run, self.device)
+        self.capture_s = sp.dur
         return g
 
     def huds(self) -> np.ndarray:
@@ -282,7 +290,9 @@ class DPProgram:
         R = self._huds.shape[0]
         n = min(self.steps, R)
         order = [(self.steps - n + i) % R for i in range(n)]
-        return self._huds[order].cpu().numpy()
+        out = self._huds[order].cpu().numpy()
+        spans.ready()
+        return out
 
 
 def make_batch_states(cfg: SLAMConfig, S: int, device=None):

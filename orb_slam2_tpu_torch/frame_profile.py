@@ -33,7 +33,8 @@ captured).  Before them, graph mode (`"graph"` in the output) runs the
 session as users do, its per-frame program captured as a CUDA graph and
 replayed: the same two windows give the wall ms a frame (host clock, one
 synchronisation at each end), the frame ms quantiles, the host ms a frame
-of the dispatch, of the replay call within it and of the HUD reactions,
+of the dispatch, of the replay call within it and of the HUD reactions
+(the session's `dispatch`, `replay` and `drain` spans, `core/spans.py`),
 the device ms a frame, the kernels the device ran a frame and the graph
 launches a frame, and the idle share of the replayed program.  Prints one
 JSON object as its last line and writes it to `--out` when given.  Needs
@@ -54,6 +55,7 @@ from collections import defaultdict
 import torch
 
 from orb_slam2_tpu_torch import config
+from orb_slam2_tpu_torch.core import spans
 from orb_slam2_tpu_torch.io import synthetic
 from orb_slam2_tpu_torch.pipeline import frame as frame_mod
 from orb_slam2_tpu_torch.pipeline import mapping, system, tracking
@@ -155,16 +157,6 @@ def profile_window(track, frames, guard=contextlib.nullcontext):
             time.perf_counter() - t0)
 
 
-def _host_timed(fn, acc, name):
-    """`fn`, its host time (no synchronisation) added to acc[name]."""
-    def wrapped(*args, **kwargs):
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        acc[name] += time.perf_counter() - t0
-        return out
-    return wrapped
-
-
 def _feeder(slam, sensor, seq, second):
     return {config.MONOCULAR: lambda f: slam.track_mono(
                 seq.images[f], seq.timestamps[f]),
@@ -185,13 +177,14 @@ def graph_mode(cfg, sensor, seq, second, warm: int, n: int) -> dict:
     # host time of the dispatch (staging copies, the replay, the HUD
     # copy), of the replay call alone and of the HUD reactions (reading
     # the HUD `hud_lag` frames late, waiting for it when the card is
-    # behind)
-    host = defaultdict(float)
-    for name in ("_dispatch_batch", "_run_program", "_drain"):
-        setattr(slam, name, _host_timed(getattr(slam, name), host, name))
+    # behind): the window's frames' spans
     r0 = slam.graph_replays
+    seq0 = spans.LOG.seq
     wall_ms = wall_window(track, range(warm, warm + n))
-    host_ms = {k: v * 1e3 / n for k, v in host.items()}
+    frames = [r for r in spans.LOG.records
+              if r.seq > seq0 and r.name == "frame"]
+    host_ms = {k: sum(r.ns(k) for r in frames) / 1e6 / n
+               for k in ("dispatch", "replay", "drain")}
     times = [t * 1e3 for t in slam.timings[warm:warm + n]]
     replays = slam.graph_replays - r0
     dev_ms, n_kernels, _, _ = profile_window(track,
@@ -205,9 +198,9 @@ def graph_mode(cfg, sensor, seq, second, warm: int, n: int) -> dict:
            "device_idle_share": 1.0 - dev_ms / n / wall_ms,
            "kernel_launches_per_frame": n_kernels / n,
            "graph_launches_per_frame": replays / n,
-           "host_ms_per_frame": {"dispatch": host_ms["_dispatch_batch"],
-                                 "replay": host_ms["_run_program"],
-                                 "hud_and_reactions": host_ms["_drain"]}}
+           "host_ms_per_frame": {"dispatch": host_ms["dispatch"],
+                                 "replay": host_ms["replay"],
+                                 "hud_and_reactions": host_ms["drain"]}}
     del slam
     return out
 

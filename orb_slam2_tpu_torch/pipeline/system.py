@@ -28,6 +28,16 @@ between frames.  A failed capture raises.  On the CPU (and with
 (`SLAM._full_step`, JAX's `_full_step_raw`) serves the CPU tests, the
 phase timers of `frame_profile.py` and comparisons on the card.
 
+Each `track_*` call is a `frame` span of the span log (`core/spans.py`;
+its duration is the `SLAM.timings` entry): `init`; `dispatch` (its
+`slot_wait`, `capture`, `replay`); `drain` (`hud_wait`, `reset`,
+`reloc_launch`, `reloc_apply`, `detect_launch`, `loop_wait`, `verify`,
+`correct`, `gba`), each reaction caused by the frame whose HUD entry
+raised it.  `flush` (`stages`, `gba`, `sync`) and `reset` are spans of
+their own.  A dispatch's device interval runs from an event before its
+input copies to the staging slot's event after its HUD copy, read where
+`_drain` waits on that event; a detection's, where `_check_loops` waits.
+
 Localisation mode (`activate_localization_mode`) tracks against a frozen
 map: no keyframe is inserted, and a depth sensor's close unmatched
 keypoints of the last frame help as temporary VO points.  `save_map` /
@@ -42,7 +52,6 @@ from __future__ import annotations
 
 import functools
 import os
-import time
 from collections import deque
 from typing import List, NamedTuple, Optional
 
@@ -54,7 +63,7 @@ from orb_slam2_tpu_torch import resolve_device
 from orb_slam2_tpu_torch.ba import local as ba_local
 from orb_slam2_tpu_torch.ba.async_gba import AsyncGBA
 from orb_slam2_tpu_torch.config import MONOCULAR, RGBD, STEREO, SLAMConfig
-from orb_slam2_tpu_torch.core import control, lie
+from orb_slam2_tpu_torch.core import control, lie, spans
 from orb_slam2_tpu_torch.map import checkpoint, ops
 from orb_slam2_tpu_torch.map.state import (MapState, empty_map, first_flagged,
                                            one_or_many, seq_ids, seq_put_row_,
@@ -353,11 +362,13 @@ class SLAM:
         self.hud_lag = 8
         self._pending: deque = deque()     # (frame_id, hud slot, b, event,
         #                                     ring slot)
-        self._loop_pending: deque = deque()  # (frame_id, kf_id, ids, groups)
+        # (frame_id, kf_id, (ids, groups), event, the HUD entry's frame id)
+        self._loop_pending: deque = deque()
         self._reloc_pending = None           # (frame_id, reloc out, Frame)
         self._batch: list = []               # (imgs, frame_id, timestamp)
         self._last_big_change = 0
         self._last_img = None                # for draw_current_frame
+        self._gba_cause = None               # the frame that started it
 
         # the program's inputs and outputs: B image slots per sensor image,
         # frame ids, timestamps and active flags; the HUD of each slot; the
@@ -373,7 +384,8 @@ class SLAM:
         self._in_t = torch.zeros(B, device=dev)
         self._in_act = torch.zeros(B, dtype=torch.bool, device=dev)
         # host side: a ring of staging slots (pinned on CUDA), one a
-        # dispatch, each with the event after its copies
+        # dispatch, each with two timing events (made once): before its
+        # input copies and after its HUD copy
         Q = self.hud_lag + 2
         pin = dict(pin_memory=cuda)
         self._pin_imgs = tuple(torch.zeros((Q, B, H, W), **pin)
@@ -383,7 +395,11 @@ class SLAM:
         self._pin_act = torch.zeros((Q, B), dtype=torch.bool, **pin)
         self._pin_hud = torch.zeros((Q, B, HUD_LEN), dtype=torch.int32,
                                     **pin)
-        self._slot_event: list = [None] * Q
+        self._slot_event: list = [None] * Q   # recorded slots' end events
+        self._slot_start = [torch.cuda.Event(enable_timing=True)
+                            if cuda else None for _ in range(Q)]
+        self._slot_end = [torch.cuda.Event(enable_timing=True)
+                          if cuda else None for _ in range(Q)]
         self._n_dispatch = 0
         self.frames_stepped = 0              # frames run by the program
         self._graphs: dict = {}              # loc_only -> CUDAGraph
@@ -456,21 +472,23 @@ class SLAM:
             if tuple(np.shape(a)) != shape:
                 raise ValueError(f"an image of shape {np.shape(a)} given to "
                                  f"a session configured for {shape}")
-        t0 = time.perf_counter()
-        if self.status == NOT_INITIALIZED:
-            with self.host_reaction():
-                frame = self._frame_fn(*(torch.as_tensor(
-                    np.asarray(a, np.float32), device=self.device)
-                    for a in imgs), self.frame_count, timestamp)
-                self._initialize(frame)
-            self.frame_count += 1
-        else:
-            self._batch.append((imgs, self.frame_count, timestamp))
-            self.frame_count += 1
-            if len(self._batch) >= self.cfg.frame_batch:
-                self._dispatch_batch()
-            self._drain(self.hud_lag)
-        self.timings.append(time.perf_counter() - t0)
+        fid = self.frame_count
+        with spans.span("frame", fid) as frame_span:
+            if self.status == NOT_INITIALIZED:
+                with self.host_reaction(), spans.span("init", fid,
+                                                      self.device):
+                    frame = self._frame_fn(*(torch.as_tensor(
+                        np.asarray(a, np.float32), device=self.device)
+                        for a in imgs), fid, timestamp)
+                    self._initialize(frame)
+                self.frame_count += 1
+            else:
+                self._batch.append((imgs, fid, timestamp))
+                self.frame_count += 1
+                if len(self._batch) >= self.cfg.frame_batch:
+                    self._dispatch_batch()
+                self._drain(self.hud_lag)
+        self.timings.append(frame_span.dur)
 
     def host_reaction(self):
         """A host reaction between frames (initialisation, reset,
@@ -512,15 +530,18 @@ class SLAM:
         """The program on the session's own buffers: eagerly, or as the
         captured graph's replay."""
         if not self.capture:
-            st, tt = self._program(loc_only, self._state, self._ts,
-                                   self._ring, self._hud)
-            assign(self._state, st)
-            assign(self._ts, tt)
+            with spans.span("replay"):
+                st, tt = self._program(loc_only, self._state, self._ts,
+                                       self._ring, self._hud)
+                assign(self._state, st)
+                assign(self._ts, tt)
             return
         g = self._graphs.get(loc_only)
         if g is None:
-            g = self._graphs[loc_only] = self._capture_program(loc_only)
-        g.replay()
+            with spans.span("capture"):
+                g = self._graphs[loc_only] = self._capture_program(loc_only)
+        with spans.span("replay"):
+            g.replay()
         self.graph_replays += 1
 
     def _capture_program(self, loc_only: bool) -> torch.cuda.CUDAGraph:
@@ -548,36 +569,44 @@ class SLAM:
         entries, self._batch = self._batch, []
         if not entries:
             return
-        B = self.cfg.frame_batch
-        Q = len(self._slot_event)
-        q = self._n_dispatch % Q
-        self._n_dispatch += 1
-        self.frames_stepped += len(entries)
-        if self._slot_event[q] is not None:
-            self._slot_event[q].synchronize()    # the slot's copies are done
-        for b in range(B):
-            imgs, fid, t = entries[min(b, len(entries) - 1)]
-            for pin, a in zip(self._pin_imgs, imgs):
-                pin[q, b].copy_(torch.as_tensor(a))
-            self._pin_fid[q, b] = fid
-            self._pin_t[q, b] = t
-            self._pin_act[q, b] = b < len(entries)
-        blocking = self.device.type != "cuda"
-        for x, pin in zip(self._in_imgs + (self._in_fid, self._in_t,
-                                           self._in_act),
-                          self._pin_imgs + (self._pin_fid, self._pin_t,
-                                            self._pin_act)):
-            x.copy_(pin[q], non_blocking=not blocking)
-        self._run_program(self.localization_only)
-        self._pin_hud[q].copy_(self._hud, non_blocking=not blocking)
-        ev = None
-        if not blocking:
-            ev = torch.cuda.Event()
-            ev.record()
-        self._slot_event[q] = ev
-        R = self._ring.frame_id.shape[0]
-        for b, (_, fid, _) in enumerate(entries):
-            self._pending.append((fid, q, b, ev, fid % R))
+        with spans.span("dispatch", entries[0][1]):
+            B = self.cfg.frame_batch
+            Q = len(self._slot_event)
+            q = self._n_dispatch % Q
+            self._n_dispatch += 1
+            self.frames_stepped += len(entries)
+            if self._slot_event[q] is not None:
+                with spans.span("slot_wait"):    # the slot's copies are done
+                    self._slot_event[q].synchronize()
+                spans.waited(self._slot_event[q])
+            for b in range(B):
+                imgs, fid, t = entries[min(b, len(entries) - 1)]
+                for pin, a in zip(self._pin_imgs, imgs):
+                    pin[q, b].copy_(torch.as_tensor(a))
+                self._pin_fid[q, b] = fid
+                self._pin_t[q, b] = t
+                self._pin_act[q, b] = b < len(entries)
+            blocking = self.device.type != "cuda"
+            # the stream looked up once for both events (a host cost)
+            stream = None if blocking else torch.cuda.current_stream(
+                self.device)
+            start = spans.mark(self.device, self._slot_start[q], stream)
+            for x, pin in zip(self._in_imgs + (self._in_fid, self._in_t,
+                                               self._in_act),
+                              self._pin_imgs + (self._pin_fid, self._pin_t,
+                                                self._pin_act)):
+                x.copy_(pin[q], non_blocking=not blocking)
+            self._run_program(self.localization_only)
+            self._pin_hud[q].copy_(self._hud, non_blocking=not blocking)
+            ev = None
+            if not blocking:
+                ev = self._slot_end[q]
+                ev.record(stream)
+                spans.interval("dispatch", entries[0][1], start, ev)
+            self._slot_event[q] = ev
+            R = self._ring.frame_id.shape[0]
+            for b, (_, fid, _) in enumerate(entries):
+                self._pending.append((fid, q, b, ev, fid % R))
 
     def _ring_frame(self, slot: int) -> Frame:
         return Frame(*[f[slot] for f in self._ring])
@@ -587,49 +616,61 @@ class SLAM:
         """Process pending HUD entries, finish the staged integration of
         the last keyframe and any running global BA.  Call before reading
         trajectories or counters."""
-        if self._batch:
-            self._dispatch_batch()
-        self._drain(0)
-        with self.host_reaction():
-            for _ in range(16):
-                if int(self.ts.map_kf) < 0:
-                    break
-                self.state, self.ts = mapping_stage(self.state, self.ts,
-                                                    self.cfg)
-            self._step_gba(to_completion=True)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+        with spans.span("flush", self.frame_count - 1):
+            if self._batch:
+                self._dispatch_batch()
+            self._drain(0)
+            with self.host_reaction():
+                with spans.span("stages", device=self.device):
+                    for _ in range(16):
+                        if int(self.ts.map_kf) < 0:
+                            break
+                        self.state, self.ts = mapping_stage(
+                            self.state, self.ts, self.cfg)
+                self._step_gba(to_completion=True)
+                if self.device.type == "cuda":
+                    with spans.span("sync"):
+                        torch.cuda.synchronize(self.device)
+                    spans.synced(self.device)
 
     def _drain(self, keep: int):
         """React to HUD entries older than `keep` frames: lost within the
         first 5 keyframes -> reset (reference Tracking.cc:472-480); lost
         later -> relocalise; a new keyframe -> schedule loop detection."""
-        while len(self._pending) > keep:
-            fid, q, b, ev, slot = self._pending.popleft()
-            if ev is not None:
-                ev.synchronize()
-            hud = self._pin_hud[q, b].numpy().copy()
-            self.last_hud = hud
-            self.status = int(hud[HUD_STATUS])
-            if self.status == OK:
-                if hud[HUD_NEED_KF] and self.enable_loop and \
-                        self._transform is not None:
-                    self._schedule_loop_detect(int(hud[HUD_REF_KF]))
-            else:
-                if int(hud[HUD_N_KF]) <= 5:
-                    with self.host_reaction():
-                        self.reset()
-                    return
-                if self._transform is not None and \
-                        self._reloc_pending is None:
-                    with self.host_reaction():
-                        # a copy: the ring slot is reused R frames later
-                        frame = clone(self._ring_frame(slot))
-                        self._reloc_pending = (fid, self._run_reloc(frame),
-                                               frame)
-        self._check_reloc(force=(keep == 0))
-        self._check_loops(force=(keep == 0))
-        self._step_gba()
+        with spans.span("drain"):
+            while len(self._pending) > keep:
+                fid, q, b, ev, slot = self._pending.popleft()
+                if ev is not None:
+                    with spans.span("hud_wait", fid):
+                        ev.synchronize()
+                    spans.waited(ev)
+                hud = self._pin_hud[q, b].numpy().copy()
+                self.last_hud = hud
+                self.status = int(hud[HUD_STATUS])
+                if self.status == OK:
+                    if hud[HUD_NEED_KF]:
+                        spans.count("drained_keyframe")
+                        if self.enable_loop and \
+                                self._transform is not None:
+                            self._schedule_loop_detect(
+                                int(hud[HUD_REF_KF]), fid)
+                else:
+                    if int(hud[HUD_N_KF]) <= 5:
+                        with self.host_reaction():
+                            self.reset(cause=fid)
+                        return
+                    if self._transform is not None and \
+                            self._reloc_pending is None:
+                        with self.host_reaction(), spans.span(
+                                "reloc_launch", fid, self.device):
+                            # a copy: the ring slot is reused R frames
+                            # later
+                            frame = clone(self._ring_frame(slot))
+                            self._reloc_pending = (
+                                fid, self._run_reloc(frame), frame)
+            self._check_reloc(force=(keep == 0))
+            self._check_loops(force=(keep == 0))
+            self._step_gba()
 
     def _run_reloc(self, frame):
         u = torch.rand((reloc.N_CAND, reloc.PNP_ITERS, reloc.PNP_SAMPLE),
@@ -642,7 +683,8 @@ class SLAM:
         (LoopClosing.cc:645-749)."""
         if not self._gba.active:
             return
-        with self.host_reaction():
+        with self.host_reaction(), spans.span("gba", self._gba_cause,
+                                              self.device):
             while True:
                 if self._gba.step():
                     self.state, T_new = self._gba.merge(self.state, self.ts.T,
@@ -663,9 +705,11 @@ class SLAM:
         if not force and self.frame_count - fid < self.hud_lag:
             return
         self._reloc_pending = None
-        with self.host_reaction():
+        with self.host_reaction(), spans.span("reloc_apply", fid,
+                                              self.device):
             if not bool(ok):
                 return
+            spans.count("relocalised")
             assign_fields(
                 self.ts, status=OK, T=T, last_T=T, has_velocity=False,
                 last_pids=pids, last_uv=frame.uv, last_octave=frame.octave,
@@ -683,66 +727,79 @@ class SLAM:
         return self.status == OK
 
     # ------------------------------------------------------------------
-    def _schedule_loop_detect(self, kf_id: int):
-        """Loop-candidate detection for a fresh keyframe; its result is
-        consumed `hud_lag` frames later by _check_loops (reference
-        LoopClosing::Run, LoopClosing.cc:57-88)."""
+    def _schedule_loop_detect(self, kf_id: int, cause: int):
+        """Loop-candidate detection for a fresh keyframe (made by frame
+        `cause`); its result is consumed `hud_lag` frames later by
+        _check_loops (reference LoopClosing::Run, LoopClosing.cc:57-88)."""
         if kf_id - self.last_loop_kf < self.cfg.loop.min_kfs_since_last:
             return  # LoopClosing.cc:114
-        ids, groups = loopclosing.detect(self.state, kf_id, self.cfg)
-        # to the host asynchronously, as the HUD: read when consumed, so
-        # the detection stalls nothing
-        cuda = self.device.type == "cuda"
-        host = tuple(torch.empty(x.shape, dtype=x.dtype, pin_memory=cuda)
-                     for x in (ids, groups))
-        for h, x in zip(host, (ids, groups)):
-            h.copy_(x, non_blocking=cuda)
-        ev = None
-        if cuda:
-            ev = torch.cuda.Event()
-            ev.record()
-        self._loop_pending.append((self.frame_count, kf_id, host, ev))
+        with spans.span("detect_launch", cause):
+            start = spans.mark(self.device)
+            ids, groups = loopclosing.detect(self.state, kf_id, self.cfg)
+            # to the host asynchronously, as the HUD: read when consumed,
+            # so the detection stalls nothing
+            cuda = self.device.type == "cuda"
+            host = tuple(torch.empty(x.shape, dtype=x.dtype,
+                                     pin_memory=cuda)
+                         for x in (ids, groups))
+            for h, x in zip(host, (ids, groups)):
+                h.copy_(x, non_blocking=cuda)
+            ev = None
+            if cuda:
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                spans.interval("detect_launch", cause, start, ev)
+        self._loop_pending.append((self.frame_count, kf_id, host, ev,
+                                   cause))
 
     def _check_loops(self, force: bool = False):
         """Consume ripe loop detections: temporal consistency, then Sim3
         verification and loop correction (rare)."""
         while self._loop_pending:
-            fid, kf_id, (ids, groups), ev = self._loop_pending[0]
+            fid, kf_id, (ids, groups), ev, cause = self._loop_pending[0]
             if not force and self.frame_count - fid < self.hud_lag:
                 return
             self._loop_pending.popleft()
             if ev is not None:
-                ev.synchronize()
-            self._verify_loop(kf_id, ids.numpy(), groups.numpy())
+                with spans.span("loop_wait", cause):
+                    ev.synchronize()
+                spans.waited(ev)
+            self._verify_loop(kf_id, ids.numpy(), groups.numpy(), cause)
 
-    def _verify_loop(self, kf_id: int, ids: np.ndarray, groups: np.ndarray):
+    def _verify_loop(self, kf_id: int, ids: np.ndarray, groups: np.ndarray,
+                     cause: Optional[int] = None):
         """Temporal consistency of a detection's candidates (ids [C],
         groups [C, K] on the host), then Sim3 verification and correction
-        of the consistent ones (a host reaction)."""
+        of the consistent ones (a host reaction; `cause`: the frame whose
+        keyframe was the query)."""
         if (ids < 0).all():
             self._consistency.reset()
             return
         consistent = self._consistency.update(ids, groups)
         if consistent:
             with self.host_reaction():
-                self._correct_loop(kf_id, consistent)
+                self._correct_loop(kf_id, consistent, cause)
 
-    def _correct_loop(self, kf_id: int, consistent):
+    def _correct_loop(self, kf_id: int, consistent, cause=None):
         for cand in consistent[:2]:
-            u = torch.rand((loopclosing.SIM3_ITERS, 3), generator=self.gen,
-                           device=self.device)
-            ok, Scm, loop_pids, _ = loopclosing.verify(
-                self.state, kf_id, cand, u, self.cfg)
-            if bool(ok):
-                self.state = loopclosing.correct(
-                    self.state, kf_id, cand, Scm, loop_pids, self.cfg)
-                T_new = self.state.kf_pose[kf_id]
-                assign_fields(self.ts, T=T_new, last_T=T_new,
-                              has_velocity=False)
-                # GBA after the pose graph, chunked between frames; a
-                # new loop discards a running solve (LoopClosing.cc:
-                # 411-423, 576-579)
-                self._gba.start(self.state, self.cfg.ba.loop_gba_iters)
+            with spans.span("verify", cause, self.device):
+                u = torch.rand((loopclosing.SIM3_ITERS, 3),
+                               generator=self.gen, device=self.device)
+                ok, Scm, loop_pids, _ = loopclosing.verify(
+                    self.state, kf_id, cand, u, self.cfg)
+                ok = bool(ok)
+            if ok:
+                with spans.span("correct", cause, self.device):
+                    self.state = loopclosing.correct(
+                        self.state, kf_id, cand, Scm, loop_pids, self.cfg)
+                    T_new = self.state.kf_pose[kf_id]
+                    assign_fields(self.ts, T=T_new, last_T=T_new,
+                                  has_velocity=False)
+                    # GBA after the pose graph, chunked between frames; a
+                    # new loop discards a running solve (LoopClosing.cc:
+                    # 411-423, 576-579)
+                    self._gba.start(self.state, self.cfg.ba.loop_gba_iters)
+                    self._gba_cause = cause
                 self.last_loop_kf = kf_id
                 self._consistency.reset()
                 break
@@ -805,13 +862,15 @@ class SLAM:
     def deactivate_localization_mode(self):
         self.localization_only = False
 
-    def reset(self):
-        """Reference System/Tracking::Reset."""
-        self.state = empty_map(self.cfg, self.device)
-        self.ts = tracking.empty_track_state(self.cfg, self.device)
-        self.status = NOT_INITIALIZED
-        self._gba.cancel()
-        self._batch.clear()
+    def reset(self, cause: Optional[int] = None):
+        """Reference System/Tracking::Reset (`cause`: the frame whose HUD
+        entry called for it, for the span log)."""
+        with spans.span("reset", cause, self.device):
+            self.state = empty_map(self.cfg, self.device)
+            self.ts = tracking.empty_track_state(self.cfg, self.device)
+            self.status = NOT_INITIALIZED
+            self._gba.cancel()
+            self._batch.clear()
 
     # ------------------------------------------------------------------
     def _traj_arrays(self):
