@@ -7,8 +7,8 @@ from the repository root, on a machine with a CUDA card and nvcc.  Phases,
 each of which fails the run when it fails:
 
   1. environment: torch / CUDA versions, the card's name and power limit;
-  2. build: compile csrc/fast_nms.cu, csrc/pose_lm.cu and
-     csrc/graph_cond.cu (the CUDA graph IF nodes of core/control.py) with
+  2. build: compile csrc/fast_nms.cu, csrc/pose_lm.cu, csrc/bow_score.cu
+     and csrc/graph_cond.cu (the CUDA graph IF nodes of core/control.py) with
      nvcc (sm_90a), and the pose LM at each cluster size 1, 2, 4, 8, all at
      once (one nvcc each), printing ptxas's register and shared-memory
      counts;
@@ -209,11 +209,17 @@ each of which fails the run when it fails:
      rows against the CPU transform, the trajectory bit-identical to phase
      12's where nothing fired; then `detect_loop_candidates` over a seeded
      2048 x 10^6 table with the query planted as a twin and as near twins
-     in three groups, in the first, a middle and the last (partial) chunk
-     of rows the scores go by (`detection_table`): the twin retrieved, a
+     in three groups, in the first, the middle and the last rows of the
+     table (`detection_table`): the twin retrieved, a
      candidate from each group, the ids equal to a float64 numpy
-     reference's (`detect_reference`), the scores within 1e-5 of its; its
-     device ms and its peak memory above the table.  Phase 25 runs in a
+     reference's (`detect_reference`), the scores within 1e-5 of its, one
+     call of the BoW scoring kernel (csrc/bow_score.cu) over the rows it
+     may read; its device ms and its peak memory above the table; last the
+     kernel against `table_scores_plain` at the drive's shape (2048 x 10^6,
+     186 rows listed, then all) and the desk's (512 x 10^4, 42, then all):
+     the same counts, scores within 1e-5, two calls bit-identical, its
+     device ms beside its bound (bytes) and the plain version's ms.  The
+     sessions' detections count their kernel calls.  Phase 25 runs in a
      process of its own, spawned after phase 4's timings, beside phases
      5-24; phases 26-28 run after phase 24 in that process, where no
      torch.profiler trace has run (`phase_place`), with phase 12's
@@ -1936,8 +1942,9 @@ def detect_reference(rows_idx, rows_val, q, valid, covis, query, min_score,
 
 # detection's planted rows (row, share of the query's words kept; None: an
 # exact twin) in covisibility groups (a chain of pairs each) spread over
-# the chunks `place.vocab._by_rows` scores at 10^6 words (67 rows each):
-# the first, the middle one and the last, partial, one (rows 2010-2047).
+# the table: its first rows, the middle and the last rows (2010-2047; the
+# chunks of 67 rows the plain version gathers at 10^6 words: the first,
+# the middle one and the last, partial, one).
 # Each group scores about as high as the others, so that one candidate of
 # each is kept; rows 42 and 43, in no group, are cut.
 DETECT_TWINS = ((17, None), (40, 1.0), (41, 0.97), (42, 0.93), (43, 0.9),
@@ -1987,8 +1994,94 @@ def detection_table(query_bow, K=DETECT_K, per_row=DETECT_WORDS_A_ROW,
     return rows_idx, rows_val, covis
 
 
+# the BoW scoring kernel's shapes: the drive's (KITTI's 2048 keyframes at
+# 10^6 words, 159-186 live at the window's end) and the desk's (TUM's 512
+# keyframes at 10^4 words, 12-42 live), each also with every row live
+BOW_DRIVE_LIVE, BOW_DESK_SHAPE, BOW_DESK_LIVE = 186, (512, 10_000), 42
+
+
+def bow_rows_ms(fn, flush, reps: int = 10) -> float:
+    """Median device ms of one call with the L2 cache flushed before it (a
+    128 MB write, which also keeps the card busy while the host enqueues
+    the call): the table rows come from device memory, as after a
+    keyframe's insertion."""
+    fn()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        flush.zero_()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+
+def check_bow_kernel(bow_cuda, vocab_mod, drive_table, drive_q):
+    """`place.vocab.table_scores` on the card (csrc/bow_score.cu) against
+    its plain version at the drive's shape (phase 28's seeded 2048 x 10^6
+    table, the first BOW_DRIVE_LIVE rows listed, then all) and the desk's
+    (a seeded 512 x 10^4 table, BOW_DESK_LIVE rows, then all): the same
+    shared-word counts, scores within DETECT_SCORE_ATOL, two calls
+    bit-identical, one call counted on the device a call; the device ms
+    of a call (L2 flushed) against its bound, the listed rows and the
+    query read once, and the plain version's ms.  Returns the rows."""
+    g = torch.Generator(device="cuda").manual_seed(WIDE_SEED)
+    K, W = BOW_DESK_SHAPE
+    desk = torch.rand(K, W, device="cuda", generator=g) * (
+        torch.rand(K, W, device="cuda", generator=g) < 0.03)
+    desk /= desk.sum(1, keepdim=True)
+    desk_q = 0.5 * desk[7] + 0.5 * desk[30]
+    flush = torch.empty(32 * 2 ** 20, device="cuda")
+    out = []
+    for name, table, q, live in (
+            ("drive", drive_table, drive_q, BOW_DRIVE_LIVE),
+            ("drive, all live", drive_table, drive_q, drive_table.shape[0]),
+            ("desk", desk, desk_q, BOW_DESK_LIVE),
+            ("desk, all live", desk, desk_q, desk.shape[0])):
+        K, W = table.shape
+        ar = torch.arange(K, device="cuda")
+        rows = torch.where(ar < live, ar, -1)
+        calls = bow_cuda.device_counts()
+        s, c = vocab_mod.table_scores(q, table, rows)
+        s2, c2 = vocab_mod.table_scores(q, table, rows)
+        torch.cuda.synchronize()
+        counted = tuple(b - a for a, b in zip(calls,
+                                              bow_cuda.device_counts()))
+        ps, pc = vocab_mod.table_scores_plain(q, table, rows)
+        err = float((s - ps).abs().max())
+        same = torch.equal(s, s2) and torch.equal(c, c2)
+        k_ms = bow_rows_ms(lambda: vocab_mod.table_scores(q, table, rows),
+                           flush)
+        p_ms = time_ms(lambda: vocab_mod.table_scores_plain(q, table, rows),
+                       reps=5, warm=1)
+        bound_ms = (live + 1) * W * 4 / PEAK_BYTES_PER_S * 1e3
+        print(f"bow_score {name} ({K} x {W}, {live} rows listed): "
+              f"{k_ms:.4f} ms device (L2 flushed), bound {bound_ms:.4f} ms "
+              f"(bytes: {(live + 1) * W * 4 / 1e9:.4f} GB), "
+              f"{100 * bound_ms / k_ms:.1f}% of it; plain {p_ms:.3f} ms; "
+              f"counts {'equal' if torch.equal(c, pc) else 'DIFFER'}, "
+              f"scores max abs err {err:.2e}; two calls "
+              f"{'bit-identical' if same else 'DIFFER'}; counted {counted}",
+              flush=True)
+        check(torch.equal(c, pc), f"bow_score {name}: shared-word counts "
+              "differ from the plain version's")
+        check(err <= DETECT_SCORE_ATOL, f"bow_score {name}: scores {err} "
+              "from the plain version's")
+        check(same, f"bow_score {name}: two calls differ")
+        check(counted == (2, 2 * live), f"bow_score {name}: the device "
+              f"counted {counted} for 2 calls of {live} rows")
+        out.append(dict(name=name, K=K, W=W, live=live, ms=k_ms,
+                        bound_ms=bound_ms, plain_ms=p_ms, err=err))
+    del desk, flush
+    return out
+
+
 def phase_vocab_kitti(SLAM, config, settings, datasets, system, vocab_mod,
-                      database, counters, root, yaml, kref, paths, vocabs):
+                      database, bow_cuda, counters, root, yaml, kref, paths,
+                      vocabs):
     """Phase 28: the KITTI 00-02 preset (`kitti_config`'s capacity: 2048
     keyframes, so a 2048 x 10^6 kf_bow) with the wide tree, and with the
     default vocabulary beside it, through the session API over phase 12's
@@ -2001,7 +2094,10 @@ def phase_vocab_kitti(SLAM, config, settings, datasets, system, vocab_mod,
     equal to a float64 numpy reference's (`detect_reference`) and the
     scores within DETECT_SCORE_ATOL of its (float32 sums of a row's
     ~10^3 non-zero terms), its device ms and its peak memory above the
-    table.  Returns ({path: launches}, the numbers)."""
+    table; every scoring call of the detection through the kernel, counted
+    on the device (also in the sessions).  Last, `check_bow_kernel` on that
+    table and on one of the desk's shape.  Returns ({path: launches}, the
+    numbers)."""
     Timed = timed_session(SLAM)
     items = datasets.load_kitti_stereo(root)
     launches, out = {}, {}
@@ -2013,6 +2109,7 @@ def phase_vocab_kitti(SLAM, config, settings, datasets, system, vocab_mod,
         torch.cuda.reset_peak_memory_stats()
         base_mem = torch.cuda.memory_allocated()
         _zero(counters)
+        bow_cuda.reset_device_counts()
         t0 = time.perf_counter()
         slam = Timed(cfg, device="cuda", vocab_path=vpath)
         for left, right, t in datasets.SequenceReader(items, "stereo"):
@@ -2030,21 +2127,25 @@ def phase_vocab_kitti(SLAM, config, settings, datasets, system, vocab_mod,
         ins, plain = frame_spans(slam, system.n_stages(cfg))
         fired = slam.reloc_attempts > 0 or slam.last_loop_kf >= 0
         differ = _same_run(slam, kref)
+        scored = bow_cuda.device_counts()
         print(f"{name} via the session ({len(items)} frames): {wall:.2f} "
               f"s, keyframes {int(slam.state.n_kf)}, kf_bow "
               f"{bow_bytes / 1e9:.3f} GB, peak {peak:.3f} GiB above the "
               f"process's {base_mem / 2 ** 30:.3f}; {span_text(ins, plain)}; "
               f"{rows} BoW rows equal the CPU transform's (max "
               f"err {worst:.2e}); launches {launches[f'kitti_1e{depth}']}; "
+              f"BoW scoring calls / rows {scored}; "
               f"{'bit-identical to phase 12' if differ is None else 'differs from phase 12: ' + differ}",
               flush=True)
         check(fired or differ is None, f"{name}: nothing fired, yet the "
               f"run differs from phase 12's in {differ}")
+        check(scored[0] > 0, f"{name}: no detection scored through the "
+              "kernel")
         out[10 ** depth] = dict(
             keyframes=int(slam.state.n_kf), kf_bow_bytes=bow_bytes,
             peak_gib=peak, keyframe_frame_ms=ins,
             plain_frame_ms=statistics.median(plain),
-            bow_rows=rows)
+            bow_rows=rows, bow_score_calls=scored[0])
         if depth == 6:
             # the query: the transform of the last keyframe's descriptors
             k = int(slam.state.kf_valid.nonzero()[-1, 0])
@@ -2066,8 +2167,14 @@ def phase_vocab_kitti(SLAM, config, settings, datasets, system, vocab_mod,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     table_mem = torch.cuda.memory_allocated()
+    calls = bow_cuda.device_counts()
     res = detect()
     torch.cuda.synchronize()
+    # one scoring call over the rows that are not the query or connected
+    # to it: all but 100 and 3
+    check(tuple(b - a for a, b in zip(calls, bow_cuda.device_counts())) ==
+          (1, K - 2), "detection at 10^6 words: not one kernel call over "
+          "the table's other rows")
     det_peak = (torch.cuda.max_memory_allocated() - table_mem) / 2 ** 30
     det_ms = queued_ms(detect, reps=10)
     # the least time: the table read once
@@ -2088,13 +2195,14 @@ def phase_vocab_kitti(SLAM, config, settings, datasets, system, vocab_mod,
           flush=True)
     check(17 in ids.tolist(), "detection at 10^6 words: the planted twin "
           "was not retrieved")
-    # one candidate from each group, two of them from later chunks
+    # one candidate from each group, two of them from later rows
     check(sorted(set(ids[found] // 1000)) == [0, 1, 2], "detection at 10^6 "
           "words: not one candidate from each planted group")
     check(np.array_equal(ids, want), "detection at 10^6 words: ids differ "
           "from the float64 reference")
     check(score_err <= DETECT_SCORE_ATOL, "detection at 10^6 words: scores "
           f"{score_err} from the float64 reference's")
+    out["bow_score"] = check_bow_kernel(bow_cuda, vocab_mod, table, q)
     del table
     out["detect"] = dict(ms=det_ms, bound_ms=det_bound, peak_gib=det_peak,
                          ids=ids.tolist())
@@ -2116,10 +2224,10 @@ def phase_place(seq, mono_ref, kref, kroot, yaml, paths):
     from orb_slam2_tpu_torch.io import datasets, evaluate, settings, synthetic
     from orb_slam2_tpu_torch.pipeline import system
     from orb_slam2_tpu_torch.pipeline.system import SLAM
-    from orb_slam2_tpu_torch.place import database
+    from orb_slam2_tpu_torch.place import bow_cuda, database
     from orb_slam2_tpu_torch.place import vocab as vocab_mod
     from orb_slam2_tpu_torch.solvers import pose_lm_cuda, pose_opt
-    for build in (fast_cuda.build, pose_lm_cuda.build,
+    for build in (fast_cuda.build, pose_lm_cuda.build, bow_cuda.build,
                   lambda: cuda_build.build(control.SOURCE)):
         build()
     counters = (fast_cuda, pose_lm_cuda, pose_opt)
@@ -2130,8 +2238,8 @@ def phase_place(seq, mono_ref, kref, kroot, yaml, paths):
     loop = phase_vocab_scenarios(SLAM, config, synthetic, evaluate,
                                  counters, paths)
     kl, kitti = phase_vocab_kitti(SLAM, config, settings, datasets, system,
-                                  vocab_mod, database, counters, kroot, yaml,
-                                  kref, paths, vocabs)
+                                  vocab_mod, database, bow_cuda, counters,
+                                  kroot, yaml, kref, paths, vocabs)
     launches.update(kl)
     return launches, dict(mono=mono, loop=loop, kitti=kitti)
 
@@ -3129,6 +3237,7 @@ def main() -> int:
         from orb_slam2_tpu_torch.map import checkpoint
         from orb_slam2_tpu_torch.pipeline import mapping, tracking
         from orb_slam2_tpu_torch.pipeline.system import SLAM
+        from orb_slam2_tpu_torch.place import bow_cuda
         from orb_slam2_tpu_torch.solvers import pose_lm_cuda, pose_opt
     except ImportError as e:
         return fail(f"the orb_slam2_tpu_torch package is missing ({e}); run "
@@ -3189,10 +3298,12 @@ def main() -> int:
     place_job = None
     try:
         # 2. build every kernel at once (one nvcc each): FAST, the pose LM
-        # as the source has it, and the pose LM at each cluster size
+        # as the source has it, the BoW scores, and the pose LM at each
+        # cluster size
         t0 = time.perf_counter()
         jobs = [lambda: fast_cuda.build(verbose=True),
                 lambda: pose_lm_cuda.build(verbose=True),
+                lambda: bow_cuda.build(verbose=True),
                 lambda: cuda_build.build(control.SOURCE),
                 lambda: native_build.build("png_unfilter")] + [
             (lambda c=c: pose_lm_cuda.build(cluster=c)) for c in CLUSTERS]

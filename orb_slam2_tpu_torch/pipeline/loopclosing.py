@@ -26,7 +26,7 @@ from orb_slam2_tpu_torch.map.state import (MapState, covisible_neighbors,
 from orb_slam2_tpu_torch.matching import hamming, search
 from orb_slam2_tpu_torch.pipeline.tracking import predict_scale
 from orb_slam2_tpu_torch.place import database
-from orb_slam2_tpu_torch.place.vocab import l1_score
+from orb_slam2_tpu_torch.place.vocab import table_scores
 from orb_slam2_tpu_torch.solvers import sim3 as sim3_mod
 from orb_slam2_tpu_torch.solvers.twoview import sets_from_uniform
 
@@ -47,8 +47,7 @@ def detect(state: MapState, kf_id, cfg: SLAMConfig, n_cand: int = 8):
     bool covisibility groups)."""
     # minScore: lowest BoW similarity among covisible neighbours
     nb = covisible_neighbors(state, kf_id, 30, min_weight=15)
-    scores = l1_score(state.kf_bow[kf_id][None, :],
-                      state.kf_bow[nb.clamp(min=0)])
+    scores, _ = table_scores(state.kf_bow[kf_id], state.kf_bow, nb)
     min_score = torch.amin(torch.where(nb >= 0, scores, 1.0))
     res = database.detect_loop_candidates(
         state.kf_bow, state.kf_valid, state.covis, kf_id,

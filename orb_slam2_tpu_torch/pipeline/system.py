@@ -77,6 +77,7 @@ from orb_slam2_tpu_torch.pipeline.tracking import (HUD_LEN, HUD_N_KF,
                                                    HUD_STATUS, LOST,
                                                    NOT_INITIALIZED, OK,
                                                    TrackState, record_traj)
+from orb_slam2_tpu_torch.place import bow_cuda
 from orb_slam2_tpu_torch.place.vocab import Vocabulary, build_transform
 from orb_slam2_tpu_torch.solvers import twoview
 from orb_slam2_tpu_torch.viz.viewer import render_frame
@@ -414,6 +415,10 @@ class SLAM:
             self._transform = build_transform(
                 self.vocab, pad_to=cfg.vocab.branching ** cfg.vocab.depth,
                 device=dev)
+            if dev.type == "cuda":
+                # detection's scoring kernel: built here, in set-up, and
+                # not at the first keyframe's detection
+                bow_cuda.load()
             self._reloc_step = reloc.build_reloc_step(cfg, self._transform)
             self._consistency = loopclosing.ConsistencyTracker(
                 cfg.loop.covisibility_consistency_th)

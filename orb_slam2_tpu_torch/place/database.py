@@ -4,7 +4,10 @@ orb_slam2_tpu/place/database.py).
 The reference's per-word inverted file becomes a dense [K, W] BoW matrix in
 the map state: shared-word counts, L1 scores and the covisibility-group
 accumulation (the 0.8 / 0.75 gates of KeyFrameDatabase.cc:113-193) are
-masked vector math over all keyframes.  Every `lax.top_k` is
+masked vector math over all keyframes.  The counts and scores come from
+one `table_scores` call over the rows whose scores the gates can read
+(on the card one kernel call that reads only those rows); the other rows
+score 0 and are masked as before.  Every `lax.top_k` is
 `map/state.stable_topk`, which keeps its lower-index tie order.
 """
 
@@ -15,7 +18,7 @@ from typing import NamedTuple
 import torch
 
 from orb_slam2_tpu_torch.map.state import stable_topk
-from orb_slam2_tpu_torch.place.vocab import l1_score, shared_words
+from orb_slam2_tpu_torch.place.vocab import table_scores
 
 NEG_INF = float("-inf")
 
@@ -74,12 +77,14 @@ def detect_loop_candidates(kf_bow: torch.Tensor, kf_valid: torch.Tensor,
     """Loop candidates for keyframe `query` (reference DetectLoopCandidates,
     KeyFrameDatabase.cc:76-197)."""
     K = kf_bow.shape[0]
-    ok = kf_valid & (torch.arange(K, device=kf_bow.device) != query)
+    ar = torch.arange(K, device=kf_bow.device)
+    ok = kf_valid & (ar != query)
     # exclude directly connected keyframes (KeyFrameDatabase.cc:96)
     ok = ok & ~(covis[query] >= min_weight_connected)
-    sw = torch.where(ok, shared_words(query_bow[None, :], kf_bow), 0)
+    # only candidates' scores and counts are read: score the ok rows
+    scores, sw = table_scores(query_bow, kf_bow, torch.where(ok, ar, -1))
+    sw = torch.where(ok, sw, 0)
     min_cw = (shared_frac * torch.amax(sw)).to(sw.dtype)
-    scores = l1_score(query_bow[None, :], kf_bow)
     cand = ok & (sw > min_cw) & (sw > 0) & (scores >= min_score)
     return _group_candidates(kf_valid, covis, scores, cand, acc_frac, n_out)
 
@@ -91,8 +96,10 @@ def detect_reloc_candidates(kf_bow: torch.Tensor, kf_valid: torch.Tensor,
     """Relocalisation candidates (reference DetectRelocalizationCandidates,
     KeyFrameDatabase.cc:199-309): the same pipeline without the min-score
     gate and the connection exclusion."""
-    sw = torch.where(kf_valid, shared_words(query_bow[None, :], kf_bow), 0)
+    ar = torch.arange(kf_bow.shape[0], device=kf_bow.device)
+    scores, sw = table_scores(query_bow, kf_bow,
+                              torch.where(kf_valid, ar, -1))
+    sw = torch.where(kf_valid, sw, 0)
     min_cw = (shared_frac * torch.amax(sw)).to(sw.dtype)
-    scores = l1_score(query_bow[None, :], kf_bow)
     cand = kf_valid & (sw > min_cw) & (sw > 0)
     return _group_candidates(kf_valid, covis, scores, cand, acc_frac, n_out)

@@ -11,6 +11,9 @@ stored as flat arrays:
     word_weight   [W] f32 IDF
 
 The system's default vocabulary is `data/vocab_default.npz`.
+`table_scores` scores one query against the listed rows of a keyframe
+table: on CUDA tensors one call of the kernel in csrc/bow_score.cu
+(`bow_cuda`), on CPU tensors `table_scores_plain`.
 `load_orbvoc_text` / `save_orbvoc_text` read and write the reference's
 DBoW2 text format (ORBvoc.txt), parsed by the native helper
 `native/voc_parser.cpp` (built with g++ at first use) or, as its plain
@@ -29,6 +32,7 @@ import torch
 
 from orb_slam2_tpu_torch import native_build, resolve_device
 from orb_slam2_tpu_torch.matching.hamming import pm1_from_packed
+from orb_slam2_tpu_torch.place import bow_cuda
 
 
 @dataclasses.dataclass
@@ -399,44 +403,61 @@ def build_transform(vocab: Vocabulary, pad_to: Optional[int] = None,
     return transform
 
 
-# the [rows, W] temporaries of a score over a keyframe table are bounded by
-# scoring at most this many bytes of table rows at once
+# the [rows, W] temporaries of the plain version of a score over a keyframe
+# table are bounded by gathering at most this many bytes of rows at once
 SCORE_CHUNK_BYTES = 1 << 28
-
-
-def _by_rows(score, bow_a: torch.Tensor, bow_b: torch.Tensor) -> torch.Tensor:
-    """score(bow_a, bow_b) over bow_b's rows in chunks of a fixed number
-    (SCORE_CHUNK_BYTES of them), for a query bow_a [1, W] or [W] against a
-    table bow_b [K, W]; other shapes in one call.  Each row's sum is the
-    same reduction whatever K is, and a table that fits in one chunk is
-    scored by the one call it always was."""
-    if bow_b.dim() != 2 or bow_a.dim() > 2 or (bow_a.dim() == 2 and
-                                                bow_a.shape[0] != 1):
-        return score(bow_a, bow_b)
-    K, W = bow_b.shape
-    rows = max(1, SCORE_CHUNK_BYTES // (bow_b.element_size() * max(W, 1)))
-    if K <= rows:
-        return score(bow_a, bow_b)
-    return torch.cat([score(bow_a, bow_b[i:i + rows])
-                      for i in range(0, K, rows)])
-
-
-def _l1(bow_a, bow_b):
-    return 1.0 - 0.5 * torch.sum(torch.abs(bow_a - bow_b), dim=-1)
-
-
-def _shared(bow_a, bow_b):
-    return torch.sum((bow_a > 0) & (bow_b > 0), dim=-1).to(torch.int32)
 
 
 def l1_score(bow_a: torch.Tensor, bow_b: torch.Tensor) -> torch.Tensor:
     """DBoW2 L1 score s = 1 - 0.5 |va - vb|_1, equal to sum min(va, vb) for
     L1-normalized vectors.  Broadcasts over leading dims; a query against
-    a keyframe table goes by chunks of rows (`_by_rows`)."""
-    return _by_rows(_l1, bow_a, bow_b)
+    rows of a keyframe table goes through `table_scores`."""
+    return 1.0 - 0.5 * torch.sum(torch.abs(bow_a - bow_b), dim=-1)
 
 
 def shared_words(bow_a: torch.Tensor, bow_b: torch.Tensor) -> torch.Tensor:
-    """Count of common words (the reference's inverted-file counting); a
-    query against a keyframe table goes by chunks of rows."""
-    return _by_rows(_shared, bow_a, bow_b)
+    """Count of common words (the reference's inverted-file counting);
+    broadcasts as `l1_score`."""
+    return torch.sum((bow_a > 0) & (bow_b > 0), dim=-1).to(torch.int32)
+
+
+def table_scores_plain(query: torch.Tensor, table: torch.Tensor,
+                       rows: torch.Tensor):
+    """`table_scores` in tensor ops, for CPU tensors: `l1_score` and
+    `shared_words` of the query against the listed rows, gathered
+    SCORE_CHUNK_BYTES of rows at a time.  Skipped rows are never read
+    (finding the listed ones reads the ids on the host)."""
+    if table.dim() != 2 or query.shape != table.shape[1:] or rows.dim() != 1:
+        raise ValueError(f"expected query [W], table [K, W] and rows [R], "
+                         f"got {tuple(query.shape)}, {tuple(table.shape)} "
+                         f"and {tuple(rows.shape)}")
+    K, W = table.shape
+    rows = rows.long()
+    listed = torch.nonzero((rows >= 0) & (rows < K))[:, 0]
+    score = torch.zeros(rows.shape, dtype=torch.float32, device=table.device)
+    shared = torch.zeros(rows.shape, dtype=torch.int32, device=table.device)
+    n = max(1, SCORE_CHUNK_BYTES // (table.element_size() * max(W, 1)))
+    for i in range(0, listed.shape[0], n):
+        at = listed[i:i + n]
+        b = table[rows[at]]
+        score[at] = l1_score(query[None, :], b)
+        shared[at] = shared_words(query[None, :], b)
+    return score, shared
+
+
+def table_scores(query: torch.Tensor, table: torch.Tensor,
+                 rows: torch.Tensor):
+    """Scores of a query [W] against the rows `rows` of a keyframe table
+    [K, W]: (score f32, shared int32), each of the shape of `rows` ([R]),
+    score[i] the L1 score (`l1_score`) and shared[i] the shared-word count
+    (`shared_words`) of table row rows[i]; a row id outside [0, K) (-1:
+    skip) gives 0 and 0 and is not read.  CUDA tensors go through the
+    kernel (one call, the bytes of the listed rows read once); CPU tensors
+    through `table_scores_plain`."""
+    fn = bow_cuda.table_scores_cuda if (
+        query.is_cuda or table.is_cuda or rows.is_cuda) else \
+        table_scores_plain
+    if rows.dim() == 1:
+        return fn(query, table, rows)
+    score, shared = fn(query, table, rows.reshape(-1))
+    return score.reshape(rows.shape), shared.reshape(rows.shape)

@@ -6,7 +6,9 @@ launches bit-identical — the per-level extractor with the kernel against
 the same extractor with the plain version on the card, and the mono and
 two-image extractors and the stereo frame function, card against CPU —
 `pose_optimize` over a batch of problems (the dp step's sequences) as
-one launch equal to one launch a problem — and the captured step: the kernels' device launch counts (graph replays
+one launch equal to one launch a problem — the BoW table scores
+against their plain version (the same counts, scores within 1e-5, two
+calls bit-identical) — and the captured step: the kernels' device launch counts (graph replays
 included), `core.control`'s IF nodes against the eager helpers, and a
 session's replayed frames against its eager frames, and the dp program's
 replayed steps (`distributed/dp.py` `DPProgram`) against its eager steps,
@@ -25,6 +27,8 @@ import torch
 from orb_slam2_tpu_torch import config
 from orb_slam2_tpu_torch.core import lie
 from orb_slam2_tpu_torch.frontend import fast_cuda, pyramid
+from orb_slam2_tpu_torch.place import bow_cuda, database
+from orb_slam2_tpu_torch.place import vocab as place_vocab
 from orb_slam2_tpu_torch.solvers import pose_lm_cuda, pose_opt
 
 # the 8 pyramid levels of a 640x480 frame, the two shapes of
@@ -329,6 +333,100 @@ def test_pose_lm_kernel_refuses_cpu_tensors():
            x.shape != (4,) else x for x in p[:7]]
     with pytest.raises(ValueError, match="pose_lm_cuda expects"):
         pose_lm_cuda.pose_lm_cuda(*cpu, p[7], p[8])
+
+
+def _bow_table(K, W, seed):
+    """A seeded [K, W] BoW table (about a third of the words of a row
+    non-zero, rows L1-normalised), a query q of the same kind, q itself as
+    row 40 and near twins of q at rows 10, 20 and 33 (all, 95% and 90% of
+    its words at perturbed values): detection's candidates stand well
+    apart from the other rows and from each other."""
+    g = torch.Generator().manual_seed(seed)
+    t = torch.rand(K, W, generator=g) * (torch.rand(K, W, generator=g) < 0.3)
+    q = torch.rand(W, generator=g) * (torch.rand(W, generator=g) < 0.3)
+    for r, keep in ((10, 1.0), (20, 0.95), (33, 0.9)):
+        t[r] = q * (0.5 + torch.rand(W, generator=g)) * (
+            torch.rand(W, generator=g) < keep)
+    t = t / t.sum(1, keepdim=True)
+    q = q / q.sum()
+    t[40] = q
+    return q, t
+
+
+# a score is an f32 sum of up to 10^4 terms |q - t| <= 2 taken in another
+# order than the plain version's
+BOW_SCORE_ATOL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [10_000, 1001], ids=["1e4", "ragged_1001"])
+def test_bow_score_kernel_matches_plain_on_card(W):
+    """`table_scores` on the card (one kernel call) against its plain
+    version on the same CUDA tensors: shared-word counts equal, scores
+    within BOW_SCORE_ATOL, 0 / 0 on skipped rows (-1, an id past the
+    table); two calls bit-identical, a row's bits the same when listed
+    alone; one call counted on the device with its listed rows; loop and
+    relocalisation candidates on the card equal to the CPU's.  W = 1001
+    takes the kernel's 4-byte loads."""
+    _card()
+    K = 64
+    q, t = _bow_table(K, W, W)
+    q, t = q.cuda(), t.cuda()
+    ids = [5, -1, 0, 63, 5, 64, 17, -1, 3] + list(range(20, 40))
+    rows = torch.tensor(ids, device="cuda")
+    listed = (rows >= 0) & (rows < K)
+    calls, scored = bow_cuda.device_counts()
+    s, c = place_vocab.table_scores(q, t, rows)
+    s2, c2 = place_vocab.table_scores(q, t, rows)
+    ps, pc = place_vocab.table_scores_plain(q, t, rows)
+    torch.cuda.synchronize()
+    assert bow_cuda.device_counts() == (calls + 2,
+                                        scored + 2 * int(listed.sum()))
+    assert s.dtype == torch.float32 and c.dtype == torch.int32
+    assert torch.equal(c, pc)
+    assert float((s - ps).abs().max()) <= BOW_SCORE_ATOL
+    assert (s[~listed] == 0).all() and (c[~listed] == 0).all()
+    assert torch.equal(s, s2) and torch.equal(c, c2)
+    s1, _ = place_vocab.table_scores(q, t, rows[6:7].int())
+    assert torch.equal(s1, s[6:7])
+    # the callers on the card against the CPU
+    valid = torch.ones(K, dtype=torch.bool)
+    valid[2::7] = False
+    covis = torch.zeros(K, K, dtype=torch.int32)
+    for a, b, w in ((10, 11, 30), (20, 21, 25), (40, 41, 50)):
+        covis[a, b] = covis[b, a] = w
+    got = []
+    for dev in ("cpu", "cuda"):
+        args = (t.to(dev), valid.to(dev), covis.to(dev))
+        got.append((database.detect_loop_candidates(
+            *args, 40, q.to(dev), torch.tensor(0.0, device=dev)),
+            database.detect_reloc_candidates(*args, q.to(dev))))
+    for a, b in zip(*got):      # the CPU's, the card's
+        assert torch.equal(a.ids, b.ids.cpu())
+        fin = torch.isfinite(a.scores)
+        assert torch.equal(torch.isfinite(b.scores.cpu()), fin)
+        assert float((a.scores - b.scores.cpu())[fin].abs().max()) <= \
+            BOW_SCORE_ATOL
+    assert got[0][0].ids[:3].tolist() == [10, 20, 33]
+    assert got[0][1].ids[:4].tolist() == [40, 10, 20, 33]
+
+
+@pytest.mark.cuda
+def test_bow_score_kernel_refuses_what_it_cannot_take():
+    """The wrapper raises on a wrong dtype, shape or device, and on a table
+    it would have to copy (not contiguous)."""
+    _card()
+    q, t = _bow_table(64, 4000, 0)
+    q, t = q.cuda(), t.cuda()
+    rows = torch.arange(8, device="cuda")
+    for args in ((q.double(), t, rows), (q, t.double(), rows),
+                 (q, t, rows.float()), (q[:-1], t, rows), (q, t[0], rows),
+                 (q.cpu(), t, rows), (q, t, rows.cpu()),
+                 (q[:2000], t[:, ::2], rows)):
+        with pytest.raises(ValueError):
+            bow_cuda.table_scores_cuda(*args)
+        with pytest.raises(ValueError):
+            place_vocab.table_scores(*args)
 
 
 @pytest.mark.cuda

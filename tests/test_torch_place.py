@@ -182,6 +182,76 @@ def test_loop_and_reloc_candidates_match_jax(seed):
                                    rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("chunk_rows", [None, 3], ids=["one_call", "by_3"])
+def test_table_scores_plain_matches_l1_and_shared(monkeypatch, chunk_rows):
+    """`table_scores` on CPU tensors: on every listed row (repeats and
+    out-of-order ids included) the bits of `l1_score` and `shared_words`
+    over the whole table, also when the listed rows are gathered 3 at a
+    time; 0 and 0 on a skipped row (-1, or an id past the table)."""
+    bow, _, _ = _db(3, K_=20, W=1000)
+    table = _t(bow)
+    q = table[4] * 0.5 + table[11] * 0.5
+    rows = _t(np.array([5, -1, 0, 19, 5, 20, 11, -1, 4, 2], np.int64))
+    if chunk_rows is not None:
+        monkeypatch.setattr(tvocab, "SCORE_CHUNK_BYTES",
+                            chunk_rows * table.shape[1] * 4)
+    score, shared = tvocab.table_scores(q, table, rows)
+    assert score.dtype == torch.float32 and shared.dtype == torch.int32
+    listed = (rows >= 0) & (rows < table.shape[0])
+    ids = rows[listed]
+    assert torch.equal(score[listed],
+                       tvocab.l1_score(q[None], table)[ids])
+    assert torch.equal(shared[listed],
+                       tvocab.shared_words(q[None], table)[ids])
+    assert (score[~listed] == 0).all() and (shared[~listed] == 0).all()
+    # int32 ids and an empty list
+    assert torch.equal(tvocab.table_scores(q, table, rows.int())[0], score)
+    s0, c0 = tvocab.table_scores(q, table, rows[:0])
+    assert s0.shape == c0.shape == (0,)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_detection_never_reads_skipped_rows(seed):
+    """Loop and relocalisation candidates and `loopclosing.detect`'s
+    min-score rows: filling the rows that detection skips (invalid
+    keyframes; for loops also the query and its connected keyframes) with
+    random non-zero BoW changes neither the ids nor the scores, bit for
+    bit."""
+    bow, valid, covis = _db(seed)
+    q = 35
+    valid[q] = True
+    rng = np.random.RandomState(10 + seed)
+    skipped = ~valid.copy()
+    skipped[q] = True
+    skipped |= covis[q] >= 15
+    noisy = bow.copy()
+    noisy[skipped] = rng.rand(int(skipped.sum()), bow.shape[1]).astype(
+        np.float32) + 0.1
+    noisy_reloc = bow.copy()
+    noisy_reloc[~valid] = noisy[~valid]
+    qb = _t((bow[q] + 0.3 * bow[7]) / 1.3)
+    for table, reloc_table in ((bow, bow), (noisy, noisy_reloc)):
+        loop = tdb.detect_loop_candidates(
+            _t(table), _t(valid), _t(covis), q, _t(bow[q]),
+            torch.tensor(0.05))
+        reloc = tdb.detect_reloc_candidates(_t(reloc_table), _t(valid),
+                                            _t(covis), qb)
+        if table is bow:
+            first = (loop, reloc)
+            assert (loop.ids >= 0).any() and (reloc.ids >= 0).any()
+        else:
+            for a, b in zip((loop, reloc), first):
+                assert torch.equal(a.ids, b.ids)
+                assert torch.equal(a.scores, b.scores)
+    # the min-score scoring of `loopclosing.detect`: the -1 neighbours
+    nb = _t(np.array([3, 9, -1, -1], np.int64))
+    got = [tvocab.table_scores(_t(bow[q]), _t(t), nb)
+           for t in (bow, np.where(np.arange(len(bow))[:, None] < 3, 5.0,
+                                   bow).astype(np.float32))]
+    assert torch.equal(got[0][0], got[1][0])
+    assert torch.equal(got[0][1], got[1][1])
+
+
 # ---------------------------------------------------------------------------
 # EPnP, Sim3, pose graph
 # ---------------------------------------------------------------------------

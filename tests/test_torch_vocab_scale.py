@@ -196,8 +196,9 @@ def test_detection_at_scale_matches_jax(table, monkeypatch, chunked):
     equal JAX's, the scores within 1e-5 (a 10^5-term f32 sum of |a - b|
     in another order: ~1e-7 relative, well under the gaps between the
     planted rows' scores), the twin among them.  "by_rows" scores the
-    table 7 rows at a time (`SCORE_CHUNK_BYTES`), as the port does at
-    10^6 words: the same ids and the same scores bit for bit."""
+    table 7 rows at a time (`SCORE_CHUNK_BYTES`), as the plain version of
+    `table_scores` gathers them at 10^6 words: the same ids and the same
+    scores bit for bit."""
     args = (jnp.asarray(table["kf"]), jnp.asarray(table["valid"]),
             jnp.asarray(table["covis"]))
     q = jnp.asarray(table["q"])
