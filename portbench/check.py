@@ -29,6 +29,24 @@ Numbers (each over the whole run; the limits are per cell, in
   tie is left out (the program's float32 may decide it either way) and
   counted apart.
 
+Two numbers of a drive that comes back to its start (`render.lap_frames`:
+frame i + lap is at frame i's pose, so a pass that reaches frame `lap`
+revisits its start); computed only when a pass revisits, and judged only
+where a cell's limits name them:
+
+- `loop_open_passes`: the revisiting passes that ended with no loop
+  correction, read from the program's span log (a `correct` span whose
+  frame lies in the pass; `harness.Session.corrections`) (loop closing);
+- `loop_junction_m`: over the revisiting passes, the worst error of a
+  relative pose, | t(Ti^-1 Tj) - t(Gi^-1 Gj) |, the poses T after the
+  final keyframe poses as `camera_centres` builds them, G the ground
+  truth, of two kinds: every tracked frame past the lap against the
+  same place one lap earlier (a loop left open keeps its drift there),
+  and every step between tracked frames from half a lap on (tracking that
+  snaps back onto the old map, or a correction that leaves a seam, jumps
+  there), so that no single frame at the return can meet it (loop
+  correction, pose graph and global BA; no reading when no tracked frame
+  past the lap has its place tracked).
 """
 
 from __future__ import annotations
@@ -65,10 +83,11 @@ def _qrot(q, v):
     return v + w * t + np.cross(qv, t)
 
 
-def camera_centres(traj: np.ndarray, kf_pose: np.ndarray):
-    """(tracked mask [n], camera centres [n, 3]) of trajectory rows [n, 17]
-    (Tcw, Tcr, reference keyframe, ok, timestamp): each frame's Tcw is its
-    Tcr after its reference keyframe's final Tcw."""
+def camera_poses(traj: np.ndarray, kf_pose: np.ndarray):
+    """(tracked mask [n], Tcw rotations as quaternions [n, 4], camera
+    centres [n, 3]) of trajectory rows [n, 17] (Tcw, Tcr, reference
+    keyframe, ok, timestamp): each frame's Tcw is its Tcr after its
+    reference keyframe's final Tcw."""
     traj = traj.astype(np.float64)
     ref = traj[:, 14].astype(np.int64)
     ok = (traj[:, 15] > 0.5) & (ref >= 0)
@@ -76,19 +95,27 @@ def camera_centres(traj: np.ndarray, kf_pose: np.ndarray):
     q = _qmul(traj[:, 7:11], kp[:, :4])
     t = _qrot(traj[:, 7:11], kp[:, 4:]) + traj[:, 11:14]
     qc = q * np.array([1.0, -1, -1, -1])
-    return ok, -_qrot(qc, t)
+    return ok, q, -_qrot(qc, t)
+
+
+def camera_centres(traj: np.ndarray, kf_pose: np.ndarray):
+    """(tracked mask [n], camera centres [n, 3]): `camera_poses`."""
+    ok, _, c = camera_poses(traj, kf_pose)
+    return ok, c
 
 
 def trajectory_errors(passes: List[dict], gt_of: Callable) -> dict:
     """ATE of each pass with >= MIN_FRAMES tracked frames; tracked and
-    attempted frames over all passes."""
+    attempted frames over all passes (from each pass's `window_row`: a
+    pass's first rows may have run in set-up)."""
     ates, per_m, untracked, tracked, rows = [], [], [], 0, 0
     for p in passes:
         ok, c = camera_centres(p["traj"], p["kf_pose"])
         n = min(len(ok), len(p["idx"]))
         ok, c = ok[:n], c[:n]
-        tracked += int(ok.sum())
-        rows += n
+        w0 = min(p.get("window_row", 0), n)
+        tracked += int(ok[w0:].sum())
+        rows += n - w0
         if n:
             untracked.append(1.0 - ok.sum() / n)
         if ok.sum() >= MIN_FRAMES:
@@ -101,6 +128,54 @@ def trajectory_errors(passes: List[dict], gt_of: Callable) -> dict:
     return {"ates": ates, "per_m": per_m, "untracked": untracked,
             "tracked": tracked,
             "rows": rows}
+
+
+def loop_numbers(passes: List[dict], gt_of: Callable, lap: int,
+                 corrections: Optional[List[int]]) -> Optional[dict]:
+    """`loop_open_passes` and `loop_junction_m` over the passes that
+    revisit their start (`lap`: a lap's frames, `render.lap_frames`), and
+    each such pass's readings (`overrun_m`, and `step_m` at `step_row`);
+    None when no pass revisits."""
+    rows, open_passes, errs = [], 0, []
+    for p in passes:
+        n = min(len(p["traj"]), len(p["idx"]))
+        idx = np.asarray(p["idx"][:n], dtype=np.int64)
+        if not (idx >= lap).any():
+            continue
+        fids = [f for f in corrections or ()
+                if f is not None and p["fid0"] <= f < p["fid0"] + n]
+        open_passes += not fids
+        ok, q, c = camera_poses(p["traj"][:n], p["kf_pose"])
+        gt = gt_of(p)[idx]
+        R = render._rotations(gt[:, :4])
+
+        def err(i, j):
+            est = _qrot(q[i], c[j] - c[i])
+            return float(np.linalg.norm(est - (gt[j, 4:] - gt[i, 4:]) @ R[i]))
+
+        tracked = np.nonzero(ok)[0]
+        row_of = {}
+        for r in tracked:
+            row_of.setdefault(int(idx[r]), int(r))
+        over = [err(row_of[int(idx[r]) - lap], r) for r in tracked
+                if int(idx[r]) - lap in row_of]
+        steps = [(err(i, j), int(j)) for i, j in zip(tracked[:-1], tracked[1:])
+                 if 2 * idx[j] >= lap]
+        overrun = max(over) if over else None
+        step, step_row = max(steps) if steps else (None, None)
+        err_p = None if overrun is None else max(overrun, step or 0.0)
+        errs.append(err_p)
+        rows.append({"fid0": int(p["fid0"]),
+                     "window_row": int(p.get("window_row", 0)),
+                     "corrections": [int(f) for f in fids],
+                     "overrun_m": overrun, "step_m": step,
+                     "step_row": step_row, "junction_m": err_p})
+    if not rows:
+        return None
+    return {"loop_open_passes": None if corrections is None
+            else open_passes,
+            "loop_junction_m": None if None in errs else max(errs),
+            "passes": rows}
 
 
 def raw_positions(cam: render.Camera, uv: np.ndarray) -> np.ndarray:
@@ -216,11 +291,12 @@ def detection_numbers(got: dict, ref: dict) -> dict:
 
 def numbers(out: dict, cam: render.Camera, orb: dict, voc: Optional[dict],
             width: int, image_of: Callable, gt_of_seq: Callable,
-            device) -> tuple:
-    """Every number the check compares, the trajectory's counts and the
-    detection's counts."""
-    traj = trajectory_errors(out["passes"],
-                             lambda p: gt_of_seq(p.get("seq", 0)))
+            device, lap: Optional[int] = None) -> tuple:
+    """Every number the check compares, the trajectory's counts, the
+    detection's counts and (`lap`: a drive that comes back to its start
+    after `lap` frames) the revisiting passes' loop readings."""
+    gt_of = lambda p: gt_of_seq(p.get("seq", 0))
+    traj = trajectory_errors(out["passes"], gt_of)
     res = {"ate_m": max(traj["ates"]) if traj["ates"] else None,
            "ate_per_m": max(traj["per_m"]) if traj["per_m"] else None,
            "untracked_share": max(traj["untracked"])
@@ -236,7 +312,14 @@ def numbers(out: dict, cam: render.Camera, orb: dict, voc: Optional[dict],
                                 detections(table, ref_rows))
         counts = det.pop("counts")
         res.update(det)
-    return res, traj, counts
+    loop = None
+    if lap is not None:
+        loop = loop_numbers(out["passes"], gt_of, lap,
+                            out.get("corrections"))
+        if loop is not None:
+            res["loop_open_passes"] = loop["loop_open_passes"]
+            res["loop_junction_m"] = loop["loop_junction_m"]
+    return res, traj, counts, loop
 
 
 def judge(nums: dict, limits: dict) -> tuple:

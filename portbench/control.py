@@ -1,7 +1,7 @@
 """The correctness check's controls, read at a cell's own size.
 
     python3 -m portbench.control --workload <cell> --seeds <n> [<n> ...]
-        [--seconds S] [--tf32] [--out PATH]
+        [--seconds S] [--tf32] [--no-loop] [--out PATH]
 
 For each seed it runs the cell once as the benchmark does and prints the
 numbers the check compares, then the readings of the controls, each
@@ -17,7 +17,10 @@ judged by the cell's limits (`check.judge`):
   program's readings of the numbers it does not replace;
 - with `--tf32`, `tf32`: the program itself with its float32 products in
   TF32 (`torch.backends.cuda.matmul.allow_tf32`), its own path to a lower
-  precision, read and judged as a run is.
+  precision, read and judged as a run is;
+- with `--no-loop`, `no_loop`: the program with its loop closing off
+  (`SLAM(enable_loop_closing=False)`), read and judged as a run is: the
+  upper side of `loop_open_passes` and `loop_junction_m`.
 
 Each also reads `plane_p50_m`, the median of the map points' distance to
 the room's nearest plane (the map placed by the ground-truth pose of its
@@ -75,8 +78,9 @@ def plane_p50(out: dict, room_of, gt_of) -> float:
         twc = gt_of(s)[i0]
         R = render._rotations(twc[None, :4])[0]
         pw = pts.astype(np.float64) @ R.T + twc[4:]
+        room = room_of(s)
         v = float(np.median(reference.plane_distances(
-            pw, room_of(s).planes)))
+            pw, room.planes, room.extents)))
         worst = v if worst is None else max(worst, v)
     return worst
 
@@ -114,6 +118,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
     ap.add_argument("--seconds", type=float, default=5.0)
     ap.add_argument("--tf32", action="store_true")
+    ap.add_argument("--no-loop", action="store_true")
     ap.add_argument("--out")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -135,6 +140,7 @@ def main(argv=None) -> int:
                "failed": r["failed"], "attempted": r["attempted"],
                "fill": r["checks"]["fill"],
                "detect_queries": r["checks"].get("detect_queries"),
+               "loop": r["checks"].get("loop"),
                "bf16": low,
                "bf16_judged": judged(dict(keep["nums"], **low), limits)}
         del keep
@@ -148,16 +154,26 @@ def main(argv=None) -> int:
             row["tf32_correct"] = r["correct"]
             row["tf32_failed"] = r["failed"]
             del keep
+        if args.no_loop:
+            keep = {}
+            r = run.run_cell(bench, cell, seed, args.seconds, False, "cuda",
+                             time.time(), keep=keep, loop=False)
+            row["no_loop"] = dict(keep["nums"], plane_p50_m=plane_p50(
+                keep["out"], keep["room_of"], keep["gt_of"]))
+            row["no_loop_judged"] = judged(keep["nums"], limits)
+            row["no_loop_correct"] = r["correct"]
+            row["no_loop_checks"] = r["checks"]
+            del keep
         print(json.dumps(row), flush=True)
         rows.append(row)
     keys = sorted({k for r in rows for k in r["program"]})
     summary = {"workload": cell["name"], "seeds": args.seeds,
                "limits": limits}
-    for side in ("program", "bf16", "tf32"):
+    for side in ("program", "bf16", "tf32", "no_loop"):
         got = [r[side] for r in rows if side in r]
         if got:
             summary[side] = {k: [g.get(k) for g in got] for k in keys}
-    for side in ("bf16_judged", "tf32_judged"):
+    for side in ("bf16_judged", "tf32_judged", "no_loop_judged"):
         got = [r[side] for r in rows if side in r]
         if got:
             summary[side] = got

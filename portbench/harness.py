@@ -8,7 +8,9 @@ Two modes, chosen by the traffic file's "mode":
   sequence from its first frame each pass, then `flush()`, and `reset()`
   before the next (the captured graph is kept); "pingpong" plays it
   forward, then backward, and so on, with no reset (localisation on the
-  map that set-up built: the motion stays continuous).
+  map that set-up built: the motion stays continuous).  `warm_after`
+  frames of the play order run in set-up; a pass that they start is
+  checked whole, from its first frame.
 - "dp": `distributed/dp.py` `DPProgram`, S sequences stepped together,
   their frames resident on the card; each step plays the next frame of
   the ping-pong order.
@@ -22,12 +24,12 @@ from __future__ import annotations
 import dataclasses
 import gc
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from portbench import render, trace, vocab
+from portbench import render, trace, vocab, window
 
 SENSORS = {"mono": 0, "stereo": 1, "rgbd": 2}
 GROUPS = ("camera", "orb", "match", "tracking", "init", "mapping", "loop",
@@ -96,6 +98,7 @@ class Player:
         self.R = host["images"].shape[0] // frames
         self.pos = 0                   # position in the play order
         self.pass_fid0 = slam.frame_count
+        self.window_fid0 = slam.frame_count    # the window's first frame
         self.pass_idx: List[int] = []  # frame index of each fid of the pass
         self.passes: List[dict] = []
         self.fid_idx: Dict[int, int] = {}
@@ -146,7 +149,8 @@ class Player:
         f0, f1 = self.pass_fid0, slam.frame_count
         if f1 > f0:
             self.passes.append({
-                "fid0": f0, "idx": np.asarray(self.pass_idx),
+                "fid0": f0, "window_row": max(0, self.window_fid0 - f0),
+                "idx": np.asarray(self.pass_idx),
                 "traj": slam.ts.traj[f0:f1].clone(),
                 "kf_pose": slam.state.kf_pose.clone()})
         self.pass_idx = []
@@ -196,14 +200,21 @@ class Session:
     """One session cell: `setup`, `window`, then the traced extras and
     `outputs`."""
 
-    def __init__(self, conf: dict, traffic: dict, seed: int, device):
+    def __init__(self, conf: dict, traffic: dict, seed: int, device,
+                 loop: bool = True):
         from orb_slam2_tpu_torch.pipeline.system import SLAM
         self.conf, self.traffic = conf, traffic
         self.cfg = slam_config(conf)
         self.device = torch.device(device)
         self.seq, self.host = render_host(conf, traffic, seed, self.device)
+        # the span log's position: the session's loop corrections are the
+        # `correct` spans after it
+        log = window.program_log()
+        self.log_from = None if log is None else (
+            log.seq, log.totals.get("correct", [0])[0])
         self.slam = SLAM(self.cfg, device=self.device,
                          vocab_path=vocab.path_for(conf["vocabulary"]),
+                         enable_loop_closing=loop,
                          capture=self.device.type == "cuda")
 
     def setup(self):
@@ -231,12 +242,15 @@ class Session:
             self.player = Player(slam, self.seq, self.host, tr["play"],
                                  tr["frames"])
             self.map_first = None
+        p = self.player
         for _ in range(tr.get("warm_after", 0)):
-            self.player.step()
-        self.player.passes.clear()
-        self.player.pass_idx = []
-        self.player.pass_fid0 = slam.frame_count
-        self.player.fid_idx.clear()
+            p.step()
+        p.passes.clear()
+        if p.play != "passes":
+            p.pass_idx = []
+            p.pass_fid0 = slam.frame_count
+            p.fid_idx.clear()
+        p.window_fid0 = slam.frame_count
         sync()
 
     def window(self, seconds: float, events: bool) -> Window:
@@ -330,7 +344,8 @@ class Session:
         slam, p = self.slam, self.player
         if self.map_first is None:
             self.map_first = p.map_first
-        passes = [{"fid0": q["fid0"], "idx": q["idx"],
+        passes = [{"fid0": q["fid0"], "window_row": q["window_row"],
+                   "idx": q["idx"],
                    "traj": q["traj"].cpu().numpy(),
                    "kf_pose": q["kf_pose"].cpu().numpy()} for q in p.passes]
         st = slam.state
@@ -369,8 +384,23 @@ class Session:
         out = {"passes": passes, "keyframes": kfs, "points": [mp],
                "ring": ring_out, "table": table,
                "map_first_idx": [self.map_first],
-               "fill": {"keyframes": n_kf_live, "points": n_mp_live}}
+               "fill": {"keyframes": n_kf_live, "points": n_mp_live},
+               "corrections": self.corrections()}
         return out
+
+    def corrections(self) -> Optional[List[int]]:
+        """The frame (the span's cause: the frame whose keyframe found the
+        loop) of each loop correction the session made, from the program's
+        span log (its `correct` spans); None without a log, or when the log
+        has dropped some of them."""
+        log = window.program_log()
+        if log is None or self.log_from is None:
+            return None
+        seq0, calls0 = self.log_from
+        got = sorted(s[1] for s in log.spans
+                     if s[0] == "correct" and s[5] > seq0)
+        calls = log.totals.get("correct", [0])[0] - calls0
+        return got if len(got) == calls else None
 
     def place_table(self, queries) -> dict:
         """Place recognition's outputs over the final map: every live
@@ -556,9 +586,11 @@ class Fleet:
         torch.cuda.empty_cache()
 
 
-def build(conf: dict, traffic: dict, seed: int, device):
+def build(conf: dict, traffic: dict, seed: int, device, loop: bool = True):
+    """The cell's `Session` or `Fleet`; `loop` False turns the session's
+    loop closing off (a control: the dp program closes no loops)."""
     if traffic["mode"] == "session":
-        return Session(conf, traffic, seed, device)
+        return Session(conf, traffic, seed, device, loop)
     if traffic["mode"] == "dp":
         return Fleet(conf, traffic, seed, device)
     raise ValueError(f"unknown traffic mode {traffic['mode']!r}")

@@ -353,8 +353,18 @@ def ate(est: np.ndarray, gt: np.ndarray):
     return float(np.sqrt((err ** 2).sum(1).mean())), R, t
 
 
-def plane_distances(points: np.ndarray, planes) -> np.ndarray:
+def plane_distances(points: np.ndarray, planes,
+                    extents=None) -> np.ndarray:
     """Each world point's distance [n] to the nearest plane of the room
-    (planes: (point, normal, ...) tuples)."""
-    d = np.stack([np.abs((points - p0) @ n) for p0, n, *_ in planes], 1)
-    return d.min(1)
+    (planes: (point, normal, u axis, v axis) tuples; `extents`: each
+    plane's (half_u, half_v) about its point, None for an infinite one)."""
+    d = []
+    for (p0, n, ua, va), ext in zip(planes, extents or [None] * len(planes)):
+        x = points - p0
+        e = np.abs(x @ n)
+        if ext is not None:
+            du = np.maximum(np.abs(x @ ua) - ext[0], 0)
+            dv = np.maximum(np.abs(x @ va) - ext[1], 0)
+            e = np.sqrt(e * e + du * du + dv * dv)
+        d.append(e)
+    return np.stack(d, 1).min(1)

@@ -20,13 +20,17 @@ What differs from the numpy copy, by design:
   converts a PNG (`d.astype(float32) / factor`);
 - the trajectories take a phase (0 in every cell), and `drive` is a
   corridor drive with a gentle, bounded weave instead of `forward`'s
-  constant yaw (which leaves the corridor after ~200 frames).
+  constant yaw (which leaves the corridor after ~200 frames);
+- `loop`, a lap of a ring road round a city block and back past its
+  start, has a room of its own (`loop_room`): a box, and the block as four
+  walls that end at their edges (a plane's optional extent), so that the
+  block hides the start from the far side of the lap.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -116,7 +120,92 @@ def drive_trajectory(n_frames: int, phase: float = 0.0, speed=0.08,
     return poses
 
 
-TRAJECTORIES = {"xyz": xyz_trajectory, "drive": drive_trajectory}
+def loop_lap(speed, block, ring, corner, overrun=0) -> Tuple[float, int]:
+    """(metres, frames) of one lap of the ring road's centreline: a square
+    `ring` / 2 from the block's walls, its corners rounded to quarter
+    circles of radius `corner`; the frames a lap are L / `speed` rounded,
+    so that a whole number of frames makes the lap (`overrun` is taken so
+    that a traffic's `motion` passes whole)."""
+    a = block / 2 + ring / 2
+    if not 0 < corner <= a:
+        raise ValueError(f"a corner radius of {corner} m does not fit a "
+                         f"route {a} m from the block's centre")
+    lap = 8 * (a - corner) + 2 * np.pi * corner
+    return lap, int(round(lap / speed))
+
+
+def loop_trajectory(n_frames: int, phase: float = 0.0, *, speed, block,
+                    ring, corner, overrun) -> np.ndarray:
+    """A car's drive round a square city block `block` m a side, in the
+    middle of a ring road `ring` m wide with the block on its left,
+    starting at the middle of a straight and heading along it: one
+    lap, back to the start pose, then `overrun` frames past it.  The
+    straights are joined by quarter circles of radius `corner`; the step
+    is the lap over its whole frames (`loop_lap`, ~`speed` m a frame);
+    `phase` moves the start by phase / 2 pi of a lap.  `n_frames` must be
+    the lap's frames plus `overrun`; every key is the traffic's to set."""
+    lap, n_lap = loop_lap(speed, block, ring, corner)
+    if n_frames != n_lap + overrun:
+        raise ValueError(f"a lap of {n_lap} frames and an overrun of "
+                         f"{overrun} make {n_lap + overrun} frames, not "
+                         f"{n_frames}")
+    a = block / 2 + ring / 2
+    h, c = a - corner, corner
+    quarter = lap / 4
+    s = np.mod(phase / (2 * np.pi) * lap
+               + np.arange(n_frames) * (lap / n_lap), lap)
+    k = np.minimum(np.floor(s / quarter), 3)
+    u = s - k * quarter
+    # one quarter, from the middle of the x = +a straight to the middle of
+    # the z = +a one: straight, arc about (h, h), straight
+    phi = np.clip((u - h) / c, 0, np.pi / 2)
+    on_arc = (u >= h) & (u < h + c * np.pi / 2)
+    after = u >= h + c * np.pi / 2
+    x = np.where(after, h - (u - h - c * np.pi / 2),
+                 np.where(on_arc, h + c * np.cos(phi), a))
+    z = np.where(after, a, np.where(on_arc, h + c * np.sin(phi), u))
+    yaw = np.where(after, -np.pi / 2, np.where(on_arc, -phi, 0.0))
+    # the quarter turned k times by -90 degrees about y
+    th = -k * np.pi / 2
+    xr = x * np.cos(th) + z * np.sin(th)
+    zr = -x * np.sin(th) + z * np.cos(th)
+    yaw = yaw + th
+    yaw = yaw - 2 * np.pi * np.round(yaw / (2 * np.pi))
+    poses = np.zeros((n_frames, 7))
+    poses[:, 0] = np.cos(yaw / 2)
+    poses[:, 2] = np.sin(yaw / 2)
+    poses[:, 4] = xr
+    poses[:, 6] = zr
+    return poses
+
+
+@dataclasses.dataclass(frozen=True)
+class Trajectory:
+    """A trajectory: its poses (n_frames, phase, **motion) -> Twc [n, 7],
+    its room (cam, n_frames, depth_range, motion) -> Room and, for one
+    that comes back to its start, its lap (motion) -> frames: frame
+    i + lap is at frame i's pose."""
+    poses: Callable
+    room: Callable
+    lap: Optional[Callable] = None
+
+
+TRAJECTORIES = {
+    "xyz": Trajectory(xyz_trajectory, lambda cam, n, depth_range, m:
+                      make_room(cam, n, False, depth_range)),
+    "drive": Trajectory(drive_trajectory, lambda cam, n, depth_range, m:
+                        make_room(cam, n, True, depth_range)),
+    "loop": Trajectory(loop_trajectory, lambda cam, n, depth_range, m:
+                       loop_room(cam, m["block"], m["ring"]),
+                       lambda m: loop_lap(**m)[1]),
+}
+
+
+def lap_frames(trajectory: str, motion: Optional[dict]) -> Optional[int]:
+    """The frames of a lap of a trajectory that comes back to its start
+    (`Trajectory.lap`); None for one that never does."""
+    lap = TRAJECTORIES[trajectory].lap
+    return None if lap is None else lap(motion or {})
 
 
 # ---------------------------------------------------------------------------
@@ -128,6 +217,8 @@ class Room:
     planes: List[Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]]
     spans: List[float]
     tex_sizes: List[int]
+    # a plane's (half_u, half_v) about its point, None: infinite
+    extents: Optional[List[Optional[Tuple[float, float]]]] = None
 
 
 def make_room(cam: Camera, n_frames: int, corridor: bool,
@@ -153,6 +244,31 @@ def make_room(cam: Camera, n_frames: int, corridor: bool,
     span = 2.0 * max(ex, ey, zf)
     tw = int(np.clip(span * ppm, 256, 4096))
     return Room(planes=planes, spans=[span] * 5, tex_sizes=[tw] * 5)
+
+
+def loop_room(cam: Camera, block: float, ring: float) -> Room:
+    """The ring road's room: an outer box (four walls `ring` m beyond the
+    block's, a floor and a ceiling `ring` / 2 m below and above the
+    camera), and the block, four walls `block` m long that end at their
+    edges.  Each plane has a texture of its own, drawn in that order, whose
+    span is the plane's whole width, so no wall repeats its texture
+    anywhere (no false revisit from the wrap); the texture's resolution is
+    `make_room`'s rule, from the nearest wall (beside the road) and the
+    farthest (across the box)."""
+    b, o, e = block / 2, block / 2 + ring, ring / 2
+    a = np.array
+    X, Y, Z = a([1.0, 0, 0]), a([0, 1.0, 0]), a([0, 0, 1.0])
+    walls = [(x * X, -np.sign(x) * X, Z, Y) for x in (o, -o)] + \
+            [(z * Z, -np.sign(z) * Z, X, Y) for z in (o, -o)]
+    blocks = [(x * X, np.sign(x) * X, Z, Y) for x in (b, -b)] + \
+             [(z * Z, np.sign(z) * Z, X, Y) for z in (b, -b)]
+    floors = [(a([0, e, 0]), -Y, X, Z), (a([0, -e, 0]), Y, X, Z)]
+    spans = [2 * o] * 4 + [2 * b] * 4 + [2 * o] * 2
+    zn, zf = e, 2 * o
+    ppm = max(cam.fx, cam.fy) / ((zn + zf) * 0.5) * 1.2
+    return Room(planes=walls + blocks + floors, spans=spans,
+                tex_sizes=[int(np.clip(sp * ppm, 256, 4096)) for sp in spans],
+                extents=[None] * 4 + [(b, e)] * 4 + [None] * 2)
 
 
 # ---------------------------------------------------------------------------
@@ -295,7 +411,9 @@ def cast(room: Room, texes, rays: torch.Tensor, twc: np.ndarray):
     img = torch.zeros((b, H, W), dtype=torch.float32, device=dev)
     zbuf = torch.full((b, H, W), float("inf"), dtype=torch.float64,
                       device=dev)
-    for (p0, n, ua, va), tex, span in zip(room.planes, texes, room.spans):
+    extents = room.extents or [None] * len(room.planes)
+    for (p0, n, ua, va), tex, span, ext in zip(room.planes, texes,
+                                               room.spans, extents):
         p0_, n_, ua_, va_ = (torch.as_tensor(v, device=dev)
                              for v in (p0, n, ua, va))
         denom = dirs @ n_
@@ -305,6 +423,8 @@ def cast(room: Room, texes, rays: torch.Tensor, twc: np.ndarray):
         Xw = t[:, None, None, :] + lam[..., None] * dirs
         tu = (Xw - p0_) @ ua_
         tv = (Xw - p0_) @ va_
+        if ext is not None:
+            hit = hit & (tu.abs() <= ext[0]) & (tv.abs() <= ext[1])
         th_, tw_ = tex.shape
         map_x = ((tu / span + 0.5) * (tw_ - 1)).to(torch.float32)
         map_y = ((tv / span + 0.5) * (th_ - 1)).to(torch.float32)
@@ -343,11 +463,12 @@ def render_sequence(cam: Camera, trajectory: str, n_frames: int, seed: int,
     (the render device by default) as 8 bits; depth, when asked for, as
     16 bits at the camera's factor converted to metres.  `depth_range`
     (near, far) sizes the room as `scene.generate` does; `motion` passes
-    the trajectory's amplitudes (`amp`, `rot_amp`; `speed`, `yaw_amp`)."""
+    the trajectory's amplitudes (`amp`, `rot_amp`; `speed`, `yaw_amp`;
+    the ring road's `loop_trajectory` keys, which also size its room)."""
     rng = rng_for(seed if texture_seed is None else texture_seed, 0)
-    twc = TRAJECTORIES[trajectory](n_frames, phase, **(motion or {}))
-    room = make_room(cam, n_frames, corridor=trajectory == "drive",
-                     depth_range=depth_range)
+    traj = TRAJECTORIES[trajectory]
+    twc = traj.poses(n_frames, phase, **(motion or {}))
+    room = traj.room(cam, n_frames, depth_range, motion or {})
     texes = make_textures(rng, room, device)
     rays = pixel_rays(cam, device)
     gen = torch.Generator(device=device)

@@ -72,11 +72,14 @@ def limits_for(conf: dict, cell: dict) -> dict:
 
 def run_cell(bench: dict, cell: dict, seed: int, seconds: float,
              traced: bool, device: str, t_start: float,
-             tf32: bool = False, keep: dict = None) -> dict:
+             tf32: bool = False, keep: dict = None,
+             loop: bool = True) -> dict:
     """One run of `cell`; returns the result object (correct, attempted,
     failed, metrics, device, [breakdown], checks).  `tf32` switches the
     program's float32 products to TF32 (the control's lower precision);
-    a dict `keep` receives the outputs and inputs the check read."""
+    `loop` False turns the session's loop closing off (the control of the
+    loop numbers); a dict `keep` receives the outputs and inputs the check
+    read."""
     import torch
 
     from portbench import check, harness, registry, render, trace, vocab
@@ -90,7 +93,7 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float,
     cuda = torch.device(device).type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    drv = harness.build(conf, traffic, seed, device)
+    drv = harness.build(conf, traffic, seed, device, loop)
     drv.setup()
     setup_s = time.time() - t_start
     win = drv.window(seconds, events=traced and cuda)
@@ -149,8 +152,9 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float,
     if conf["vocabulary"]["tree"] != "none":
         voc = vocab.load(vocab.path_for(conf["vocabulary"]))
         width = conf["vocabulary"]["branching"] ** conf["vocabulary"]["depth"]
-    nums, traj, detect_counts = check.numbers(out, cam, conf["orb"], voc,
-                                              width, image_of, gt_of, device)
+    nums, traj, detect_counts, loop_counts = check.numbers(
+        out, cam, conf["orb"], voc, width, image_of, gt_of, device,
+        render.lap_frames(traffic["trajectory"], traffic.get("motion")))
     if window_rows is None:
         tracked = traj["tracked"]
     else:
@@ -172,6 +176,8 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float,
     checks = {name: {"value": v, "limit": lim} for name, v, lim in rows}
     if detect_counts is not None:
         checks["detect_queries"] = detect_counts
+    if loop_counts is not None:
+        checks["loop"] = loop_counts
     checks["fill"] = {"keyframes": out["fill"]["keyframes"],
                       "points": out["fill"]["points"],
                       "limit_keyframes": cap["max_keyframes"],
